@@ -1,0 +1,167 @@
+"""Public entry points around the kernels: counterpart of
+``repro/kernels/ops.py``.
+
+Each entry quantizes activations where the kernel needs it, calls the
+kernel wrapper (the CUDA kernel on CUDA tensors, its plain version on CPU
+tensors) and, where forces must differentiate through it, carries the
+straight-through or reference backward as a ``torch.autograd.Function``.
+The TPU wrappers' padding to 128-multiples (of the matmul operands and
+of the MDDQ codebook) is not copied: the CUDA kernels mask ragged shapes
+themselves.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.mddq import MDDQConfig, fake_quant_from_codes
+from repro_torch.core.quantizers import (abs_max_scale,
+                                         dequantize_log_magnitude, pack_int4,
+                                         quantize)
+from repro_torch.kernels.edge_softmax import edge_softmax_fused
+from repro_torch.kernels.mddq_kernel import mddq_encode_kernel
+from repro_torch.kernels.quant_matmul import w4a8_matmul, w8a8_matmul
+from repro_torch.kernels.ref import edge_softmax_ref
+
+__all__ = ["prepare_w8", "prepare_w4", "quantize_activations",
+           "matmul_w8a8", "matmul_w4a8", "mddq_encode",
+           "mddq_qdq_kernel", "edge_gather", "edge_softmax"]
+
+
+# --- weight preparation (offline) -------------------------------------------
+
+def prepare_w8(w: torch.Tensor):
+    """fp32 (K, N) -> (w_q int8 (K, N), w_scale f32 (1, N)) per column."""
+    scale = abs_max_scale(w, 8, channel_axis=1)
+    return quantize(w, scale, 8), scale
+
+
+def prepare_w4(w: torch.Tensor):
+    """fp32 (K, N) -> (packed uint8 (K, N//2), w_scale f32 (1, N))."""
+    scale = abs_max_scale(w, 4, channel_axis=1)
+    return pack_int4(quantize(w, scale, 4)), scale
+
+
+def quantize_activations(x: torch.Tensor, bits: int = 8):
+    """fp (M, K) -> (int8 (M, K), scale f32 (M, 1)) per-row dynamic."""
+    scale = abs_max_scale(x, bits, channel_axis=0)
+    return quantize(x, scale, bits), scale
+
+
+# --- quantized matmul (K1 / K2) ----------------------------------------------
+
+def matmul_w8a8(x: torch.Tensor, w_q: torch.Tensor,
+                w_scale: torch.Tensor) -> torch.Tensor:
+    """y = x @ dequant(w) with per-row A8 activations. x: (M, K) f32."""
+    a_q, a_scale = quantize_activations(x)
+    return w8a8_matmul(a_q, a_scale, w_q, w_scale)
+
+
+def matmul_w4a8(x: torch.Tensor, w_packed: torch.Tensor,
+                w_scale: torch.Tensor) -> torch.Tensor:
+    """y = x @ dequant(w); w_packed: (K, N//2) uint8 nibbles."""
+    a_q, a_scale = quantize_activations(x)
+    return w4a8_matmul(a_q, a_scale, w_packed, w_scale)
+
+
+# --- MDDQ encode (K4) ---------------------------------------------------------
+
+def mddq_encode(v: torch.Tensor, codebook: torch.Tensor,
+                mag_bits: int = 8, m_min: float = 1e-6, m_max: float = 1e3):
+    """v: (..., 3); codebook: (C, 3) -> (dir_idx int32, mag_code int32),
+    each of shape (...)."""
+    lead = v.shape[:-1]
+    idx, mag = mddq_encode_kernel(v.reshape(-1, 3).contiguous(), codebook,
+                                  mag_bits=mag_bits, m_min=m_min, m_max=m_max)
+    return idx.reshape(lead), mag.reshape(lead)
+
+
+class _MDDQQdq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, cfg: MDDQConfig, codebook):
+        idx, mag = mddq_encode(v, codebook, mag_bits=cfg.magnitude_bits,
+                               m_min=cfg.m_min, m_max=cfg.m_max)
+        m_q = dequantize_log_magnitude(mag, cfg.magnitude_bits, cfg.m_min,
+                                       cfg.m_max)[..., None]
+        q_dir = codebook[idx]
+        out = q_dir * m_q
+        m2 = (v * v).sum(-1, keepdim=True)
+        ctx.cfg = cfg
+        ctx.save_for_backward(v, q_dir, m_q)
+        # 1e-24 = core.mddq._EPS ** 2
+        return torch.where(m2 <= 1e-24, torch.zeros_like(out), out)
+
+    @staticmethod
+    def backward(ctx, g):
+        v, q_dir, m_q = ctx.saved_tensors
+        with torch.enable_grad():
+            v_ = v.detach().requires_grad_()
+            out = fake_quant_from_codes(v_, ctx.cfg, q_dir, m_q)
+            (gv,) = torch.autograd.grad(out, v_, g)
+        return gv, None, None
+
+
+def mddq_qdq_kernel(v: torch.Tensor, mddq_cfg: MDDQConfig,
+                    codebook: torch.Tensor) -> torch.Tensor:
+    """Serve-time MDDQ quantize-dequantize through the encode kernel.
+
+    Forward: the encode (codebook argmax + log-magnitude code) and the
+    table decode; zero vectors (|v|^2 <= 1e-24) map to exactly zero.
+    Backward: the fake-quant reference's gradient (straight-through
+    magnitude, Geometric STE on the direction) evaluated at the codes the
+    forward found, so no second search runs; the JAX package re-runs the
+    reference forward instead, which differs only at a near-tie.
+    v: (..., 3); codebook: (C, 3), frozen (no gradient).
+    """
+    if mddq_cfg.magnitude_domain != "log":
+        raise NotImplementedError(
+            "the encode kernel quantizes magnitudes on the log grid only; "
+            "use the fake-quant reference for linear-domain configs")
+    return _MDDQQdq.apply(v, mddq_cfg, codebook)
+
+
+# --- edge gather and fused edge softmax (K3) ----------------------------------
+
+def edge_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` for edge lists, as ``index_select``, whose backward is
+    an ``index_add`` (atomics on the card; advanced indexing would take a
+    sort-based scatter instead). The JAX package's blocked one-hot
+    backward is an adaptation to serialized scatters on XLA's CPU backend,
+    not needed here."""
+    return torch.index_select(x, 0, idx)
+
+
+class _EdgeSoftmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q_scaled, k, bias, values, senders, receivers,
+                edge_mask, cap: int):
+        ctx.save_for_backward(q_scaled, k, bias, values, senders, receivers,
+                              edge_mask)
+        return edge_softmax_fused(q_scaled, k, bias, values, senders,
+                                  receivers, edge_mask, cap)
+
+    @staticmethod
+    def backward(ctx, g):
+        # true gradients through the plain version (identical maths to the
+        # kernel), as the JAX package runs the oracle's gradients
+        q, k, bias, values, senders, receivers, edge_mask = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (q, k, bias, values)]
+            out = edge_softmax_ref(ins[0], ins[1], ins[2], senders, receivers,
+                                   edge_mask, ins[3], q.shape[0])
+            grads = torch.autograd.grad(out, ins, g)
+        return (*grads, None, None, None, None)
+
+
+def edge_softmax(q_scaled, k, bias, values, senders, receivers, edge_mask,
+                 *, cap: int) -> torch.Tensor:
+    """out[i] = sum_{e: recv(e)=i} alpha_e * values[e], alpha the segment
+    softmax of q_scaled[recv] . k[send] + bias over each receiver.
+
+    Always the fused kernel on CUDA tensors (and its plain version on CPU
+    tensors), differentiable through the plain version's gradients. The
+    inputs follow the ``bucketing.EdgeList`` layout; a receiver with no
+    real edge yields exactly 0.
+    """
+    return _EdgeSoftmax.apply(q_scaled.contiguous(), k.contiguous(),
+                              bias.contiguous(), values.contiguous(),
+                              senders, receivers, edge_mask, cap)

@@ -1,0 +1,96 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points never quietly fall back to the CPU."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_importing_every_module_leaves_jax_and_repro_out():
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in _modules())
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'repro'))\n"
+              "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_no_source_file_imports_jax_or_repro():
+    offenders = []
+    for path in PKG.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for name in names:
+                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    offenders.append(f"{path.relative_to(ROOT)}: {name}")
+    assert offenders == []
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.models.so3krates import So3kratesConfig, init_params
+    from repro_torch.serving import QuantizedEngine
+    from repro_torch.weights import params_from_numpy
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = So3kratesConfig(feat=8, vec_feat=2, n_layers=1, n_rbf=4,
+                          dir_bits=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QuantizedEngine.from_config(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy({})
+    with pytest.raises(RuntimeError):
+        init_params(cfg, device="cuda")
+    assert init_params(cfg, device="cpu")["embed"].device.type == "cpu"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def test_kernel_build_needs_nvcc_not_an_import():
+    """Importing the kernel modules builds nothing; the build directory
+    is keyed by a hash of the sources under the checkout."""
+    from repro_torch.kernels import _build
+    assert _build._lib is None or torch.cuda.is_available()
+    root = _build._build_root()
+    assert root == ROOT / "build" / "repro_torch"
+    assert len(_build._source_hash()) == 16
+    for name in _build.SOURCES:
+        assert (PKG / "kernels" / "csrc" / name).exists()
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, alone):
+    """``chip_smoke.py`` must exit non-zero and print no result when there
+    is no card, and when it sits in a directory without the repo."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the smoke run would run for real")
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+    out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, cwd=script.parent, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
