@@ -12,7 +12,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["qmax", "abs_max_scale", "quantize", "fake_quant_ste", "pack_int4", "unpack_int4",
+__all__ = ["qmax", "div_by_constant", "scale_from_amax", "abs_max_scale",
+           "quantize", "fake_quant_ste", "pack_int4", "unpack_int4",
            "log_magnitude_bounds", "quantize_log_magnitude",
            "dequantize_log_magnitude", "f32"]
 
@@ -20,6 +21,22 @@ __all__ = ["qmax", "abs_max_scale", "quantize", "fake_quant_ste", "pack_int4", "
 def qmax(bits: int) -> int:
     """Largest representable magnitude of a signed symmetric b-bit grid."""
     return 2 ** (bits - 1) - 1
+
+
+def div_by_constant(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c``, correctly rounded on every device. On CUDA, PyTorch
+    divides by a Python scalar by multiplying with its reciprocal, which
+    moves about 4% of abs-max scales by an ulp; a tensor divisor gets the
+    IEEE division there too, as on the CPU and in the CUDA kernels."""
+    return x / torch.full_like(x, c)
+
+
+def scale_from_amax(amax: torch.Tensor, bits: int,
+                    eps: float = 1e-8) -> torch.Tensor:
+    """``max(amax, eps) / qmax(bits)`` in amax's dtype, correctly rounded
+    on every device: the one rounding of every abs-max scale in the
+    package (weights, activations, the int8 KV write)."""
+    return div_by_constant(torch.clamp(amax, min=eps), qmax(bits))
 
 
 def abs_max_scale(x: torch.Tensor, bits: int,
@@ -32,7 +49,7 @@ def abs_max_scale(x: torch.Tensor, bits: int,
     else:
         axes = tuple(i for i in range(x.ndim) if i != channel_axis % x.ndim)
         amax = x.abs().amax(dim=axes, keepdim=True)
-    return torch.clamp(amax, min=eps) / qmax(bits)
+    return scale_from_amax(amax, bits, eps)
 
 
 def quantize(x: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:

@@ -28,7 +28,8 @@ from typing import Optional
 __all__ = ["library", "build_seconds", "check", "SOURCES"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("quant_matmul.cu", "edge_softmax.cu", "mddq_encode.cu")
+SOURCES = ("quant_matmul.cu", "edge_softmax.cu", "mddq_encode.cu",
+           "act_quant.cu", "attention_int8kv.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC")
 
@@ -42,6 +43,11 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _P),
     "repro_mddq_encode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _F, _F, _F, _F, _I, _P),
+    "repro_act_quant_f32": (_P, _P, _P, _I, _I, _I, _P),
+    "repro_act_quant_bf16": (_P, _P, _P, _I, _I, _I, _P),
+    "repro_decode_attention_int8kv": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                      _P),
 }
 
 _lock = threading.Lock()

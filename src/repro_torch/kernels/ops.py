@@ -1,10 +1,11 @@
 """Public entry points around the kernels: counterpart of
 ``repro/kernels/ops.py``.
 
-Each entry quantizes activations where the kernel needs it, calls the
-kernel wrapper (the CUDA kernel on CUDA tensors, its plain version on CPU
-tensors) and, where forces must differentiate through it, carries the
-straight-through or reference backward as a ``torch.autograd.Function``.
+Each entry quantizes activations where the kernel needs it (through the
+act-quant kernel), calls the kernel wrapper (the CUDA kernel on CUDA
+tensors, its plain version on CPU tensors) and, where forces must
+differentiate through it, carries the straight-through or reference
+backward as a ``torch.autograd.Function``.
 The TPU wrappers' padding to 128-multiples (of the matmul operands and
 of the MDDQ codebook) is not copied: the CUDA kernels mask ragged shapes
 themselves.
@@ -17,6 +18,8 @@ from repro_torch.core.mddq import MDDQConfig, fake_quant_from_codes
 from repro_torch.core.quantizers import (abs_max_scale,
                                          dequantize_log_magnitude, pack_int4,
                                          quantize)
+from repro_torch.kernels import attention_int8kv as _attn
+from repro_torch.kernels.act_quant import act_quant
 from repro_torch.kernels.edge_softmax import edge_softmax_fused
 from repro_torch.kernels.mddq_kernel import mddq_encode_kernel
 from repro_torch.kernels.quant_matmul import w4a8_matmul, w8a8_matmul
@@ -24,7 +27,8 @@ from repro_torch.kernels.ref import edge_softmax_ref
 
 __all__ = ["prepare_w8", "prepare_w4", "quantize_activations",
            "matmul_w8a8", "matmul_w4a8", "mddq_encode",
-           "mddq_qdq_kernel", "edge_gather", "edge_softmax"]
+           "mddq_qdq_kernel", "edge_gather", "edge_softmax",
+           "prepare_kv_int8", "decode_attention_int8kv"]
 
 
 # --- weight preparation (offline) -------------------------------------------
@@ -41,10 +45,11 @@ def prepare_w4(w: torch.Tensor):
     return pack_int4(quantize(w, scale, 4)), scale
 
 
-def quantize_activations(x: torch.Tensor, bits: int = 8):
-    """fp (M, K) -> (int8 (M, K), scale f32 (M, 1)) per-row dynamic."""
-    scale = abs_max_scale(x, bits, channel_axis=0)
-    return quantize(x, scale, bits), scale
+def quantize_activations(x: torch.Tensor):
+    """f32 (M, K) -> (int8 (M, K), scale f32 (M, 1)) per-row dynamic A8,
+    through the act-quant kernel on CUDA tensors (bit for bit the plain
+    ``max(max|x|, 1e-8) / 127`` formula it runs on CPU tensors)."""
+    return act_quant(x.contiguous())
 
 
 # --- quantized matmul (K1 / K2) ----------------------------------------------
@@ -165,3 +170,25 @@ def edge_softmax(q_scaled, k, bias, values, senders, receivers, edge_mask,
     return _EdgeSoftmax.apply(q_scaled.contiguous(), k.contiguous(),
                               bias.contiguous(), values.contiguous(),
                               senders, receivers, edge_mask, cap)
+
+
+# --- int8-KV decode attention (K5 for the cache write, K6) --------------------
+
+def prepare_kv_int8(k: torch.Tensor, v: torch.Tensor):
+    """(..., D) float32 or bfloat16 K and V -> (k_q int8 (..., D), k_s f32
+    (...), v_q, v_s): per-token abs-max int8 codes and scales, the scale
+    taken in the input's dtype (``repro/kernels/ops.py``'s formula, and the
+    JAX LM decode's KV write). Both go through one act-quant launch."""
+    lead, d = k.shape[:-1], k.shape[-1]
+    q, s = act_quant(torch.stack((k, v)).reshape(-1, d))
+    q, s = q.reshape(2, *lead, d), s.reshape(2, *lead)
+    return q[0], s[0], q[1], s[1]
+
+
+def decode_attention_int8kv(q, k_q, k_scale, v_q, v_scale, n_valid: int,
+                            softmax_scale: float) -> torch.Tensor:
+    """One-token attention over an int8 cache, grouped layout: q (BH, G,
+    D) f32, k_q/v_q (BH, S, D) int8, scales (BH, S) f32, tokens
+    ``[0, n_valid)``; returns (BH, G, D) f32."""
+    return _attn.decode_attention_int8kv(q, k_q, k_scale, v_q, v_scale,
+                                         n_valid, softmax_scale)

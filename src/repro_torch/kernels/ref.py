@@ -3,17 +3,19 @@
 Counterpart of ``repro/kernels/ref.py``. The CPU path of every kernel
 wrapper runs these, and ``chip_smoke.py`` holds each CUDA kernel against
 them on the card. Where a kernel is meant to match bit for bit (the
-quantized matmuls, the MDDQ encode), the version here performs the same
-float32 operations in the same order.
+quantized matmuls, the MDDQ encode, the activation quantizer), the
+version here performs the same float32 operations in the same order.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quantizers import quantize_log_magnitude, unpack_int4
+from repro_torch.core.quantizers import (quantize_log_magnitude,
+                                         scale_from_amax, unpack_int4)
 
 __all__ = ["w8a8_matmul_ref", "w4a8_matmul_ref", "nearest_code_ref",
-           "mddq_encode_ref", "edge_softmax_ref", "NEG_BIAS"]
+           "mddq_encode_ref", "edge_softmax_ref", "act_quant_ref",
+           "decode_attention_int8kv_ref", "NEG_BIAS"]
 
 NEG_BIAS = -1e9   # masked-edge logit; matches the dense forward's pair mask
 _NEAREST_CHUNK = 4096
@@ -117,3 +119,38 @@ def edge_softmax_ref(q_scaled, k, bias, senders, receivers, edge_mask,
     has = denom > 0
     safe = torch.where(has, denom, torch.ones_like(denom))[:, None]
     return torch.where(has[:, None], num / safe, torch.zeros_like(num))
+
+
+# --- activation quantization (the A8 step, the int8 KV write) ----------------
+
+def act_quant_ref(x: torch.Tensor):
+    """x: (M, K) float32 or bfloat16 -> (q int8 (M, K), scale f32 (M, 1)).
+
+    ``scale = max(max|x|, 1e-8) / 127`` per row, taken in x's dtype (for
+    bfloat16 the floor and the quotient round to bf16, as the JAX LM
+    decode's KV write computes them) and widened to float32; then
+    ``q = clip(round(x / scale), -127, 127)`` in float32, half to even.
+    Every division is correctly rounded, on the CPU and on the card.
+    """
+    scale = scale_from_amax(x.abs().amax(dim=-1, keepdim=True), 8) \
+        .to(torch.float32)
+    q = torch.clamp(torch.round(x.to(torch.float32) / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+# --- int8-KV decode attention -------------------------------------------------
+
+def decode_attention_int8kv_ref(q, k_q, k_scale, v_q, v_scale, n_valid,
+                                softmax_scale):
+    """One-token decode attention over an int8 K/V cache, grouped layout.
+
+    q: (BH, G, D) f32; k_q/v_q: (BH, S, D) int8; k_scale/v_scale: (BH, S)
+    f32. Attends to tokens ``[0, n_valid)``. Returns (BH, G, D) f32. With
+    G = 1 and n_valid = S it is ``repro/kernels/ref.py``'s
+    ``decode_attention_int8kv_ref``.
+    """
+    k = k_q[:, :n_valid].to(torch.float32) * k_scale[:, :n_valid, None]
+    v = v_q[:, :n_valid].to(torch.float32) * v_scale[:, :n_valid, None]
+    logits = torch.einsum("bgd,bsd->bgs", q, k) * softmax_scale
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bgs,bsd->bgd", w, v)

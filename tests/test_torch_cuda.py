@@ -5,9 +5,13 @@ has no CPU mode). On the card, with no JAX installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the quantized matmuls and the MDDQ encode codes exactly (the
-kernels repeat their plain versions' arithmetic in the same order); the
-edge softmax to 1e-5 (its sums run in another order).
+Tolerances: the quantized matmuls, the MDDQ encode codes and the
+activation quantizer (float32 and bfloat16) exactly (the kernels repeat
+their plain versions' arithmetic in the same order); the edge softmax and
+the int8-KV decode attention to 1e-5 (their sums run in another order).
+The LM decode on the card against the CPU plain path to 1e-4 of the
+largest |logit| (float32 smoke config; the card's cuBLAS sums in another
+order than the CPU).
 """
 import numpy as np
 import pytest
@@ -15,9 +19,13 @@ import torch
 
 from repro_torch.core.codebook import make_codebook
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.act_quant import act_quant
+from repro_torch.kernels.attention_int8kv import decode_attention_int8kv
 from repro_torch.kernels.edge_softmax import edge_softmax_fused
 from repro_torch.kernels.mddq_kernel import mddq_encode_kernel
 from repro_torch.kernels.quant_matmul import w4a8_matmul, w8a8_matmul
+from repro_torch.launch import serve
+from repro_torch.models.lm.transformer import init_cache
 from repro_torch.models.so3krates import So3kratesConfig
 from repro_torch.serving import QuantizedEngine, ServeConfig, random_graphs
 from repro_torch.serving.bucketing import build_edge_list
@@ -115,3 +123,93 @@ def test_engine_on_card_matches_cpu_plain_path(cuda):
     for a, b in zip(card, cpu):
         assert abs(a.energy - b.energy) <= 1e-4 * max(abs(b.energy), 1.0)
         assert float(np.abs(a.forces - b.forces).max()) <= 1e-4 * f_scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k", [(1, 1), (16, 64), (256, 16), (256, 80),
+                                 (4096, 896), (37, 1000)])
+def test_act_quant_bit_for_bit(cuda, dtype, m, k):
+    g = torch.Generator(device=cuda).manual_seed(m * k)
+    x = (torch.randn(m, k, generator=g, device=cuda)
+         * torch.exp(torch.randn(m, 1, generator=g, device=cuda))).to(dtype)
+    x[0] = 0.0                                   # the 1e-8 floor
+    if m > 2:
+        x[1] = 1e-9                              # below the floor
+    before = act_quant.launches
+    q, s = act_quant(x)
+    q_p, s_p = ref.act_quant_ref(x)
+    assert act_quant.launches == before + 1
+    assert torch.equal(q, q_p) and torch.equal(s, s_p)
+    q_c, s_c = ref.act_quant_ref(x.cpu())
+    assert torch.equal(q.cpu(), q_c) and torch.equal(s.cpu(), s_c)
+
+
+def test_act_quant_rejects_bad_arguments(cuda):
+    with pytest.raises(TypeError):
+        act_quant(torch.zeros(4, 8, dtype=torch.float16, device=cuda))
+    with pytest.raises(ValueError):
+        act_quant(torch.zeros(8, 4, device=cuda).T)
+
+
+@pytest.mark.parametrize("n_valid", [1, 31, 32, 33, 37, 1000, 2048])
+def test_decode_attention_int8kv_matches_plain(cuda, n_valid):
+    g = torch.Generator(device=cuda).manual_seed(n_valid)
+    bh, grp, s, d = 16, 7, 2048, 64
+    q = torch.randn(bh, grp, d, generator=g, device=cuda)
+    k = torch.randn(bh, s, d, generator=g, device=cuda) * 2
+    v = torch.randn(bh, s, d, generator=g, device=cuda)
+    k_q, k_s, v_q, v_s = ops.prepare_kv_int8(k, v)
+    before = decode_attention_int8kv.launches
+    got = decode_attention_int8kv(q, k_q, k_s, v_q, v_s, n_valid, d ** -0.5)
+    want = ref.decode_attention_int8kv_ref(q, k_q, k_s, v_q, v_s, n_valid,
+                                           d ** -0.5)
+    assert decode_attention_int8kv.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    # tokens past n_valid are never read: garbage there changes nothing
+    k_q[:, n_valid:] = 127
+    v_s[:, n_valid:] = float("nan")
+    again = decode_attention_int8kv(q, k_q, k_s, v_q, v_s, n_valid,
+                                    d ** -0.5)
+    assert torch.equal(again, got)
+
+
+def test_decode_attention_int8kv_wide_heads(cuda):
+    """llama3.2-3b's grouping (g=3, hd=128) and a group wide enough to need
+    more than 48 KB of shared memory (g=16, hd=128)."""
+    for grp in (3, 16):
+        g = torch.Generator(device=cuda).manual_seed(grp)
+        q = torch.randn(4, grp, 128, generator=g, device=cuda)
+        k, v = (torch.randn(4, 300, 128, generator=g, device=cuda)
+                for _ in range(2))
+        kv = ops.prepare_kv_int8(k, v)
+        torch.testing.assert_close(
+            decode_attention_int8kv(q, *kv, 300, 0.125),
+            ref.decode_attention_int8kv_ref(q, *kv, 300, 0.125),
+            rtol=1e-5, atol=1e-5)
+
+
+def test_lm_decode_on_card_matches_cpu_plain_path(cuda):
+    """qwen2's smoke config (float32, int8 KV, W8 weights): the same
+    weights decode the same tokens on the card (K5 and K6 launched on
+    every layer) and on the CPU (plain versions)."""
+    cfg = serve.lm_config("qwen2-0.5b", smoke=True, quant="serve_w8a8",
+                          kv_quant=True)
+    lm = {dev: serve.build_lm(cfg, seed=0, device=dev)
+          for dev in (cuda, "cpu")}
+    caches = {dev: init_cache(cfg, 3, 16, dev) for dev in lm}
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(8, 3, 1)))
+    before = (act_quant.launches, decode_attention_int8kv.launches)
+    for i in range(8):
+        out = {dev: serve.decode(lm[dev], caches[dev], toks[i].to(
+            lm[dev].device), i).cpu() for dev in lm}
+        torch.testing.assert_close(
+            out[cuda], out["cpu"], rtol=0,
+            atol=1e-4 * float(out["cpu"].abs().max()))
+    assert act_quant.launches - before[0] == 8 * cfg.n_layers
+    assert decode_attention_int8kv.launches - before[1] == 8 * cfg.n_layers
+    # the K/V rows come out of matmuls summed in other orders, so a code
+    # at a rounding boundary may move by one
+    diff = (caches[cuda]["blocks"]["k_q"].cpu().int()
+            - caches["cpu"]["blocks"]["k_q"].int()).abs()
+    assert int(diff.max()) <= 1

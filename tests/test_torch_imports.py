@@ -52,7 +52,11 @@ def test_no_source_file_imports_jax_or_repro():
 def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.models.so3krates import So3kratesConfig, init_params
     from repro_torch.serving import QuantizedEngine
-    from repro_torch.weights import params_from_numpy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import build_lm
+    from repro_torch.models.lm.attention import init_kv_cache
+    from repro_torch.models.lm.transformer import init_cache, init_lm
+    from repro_torch.weights import lm_params_from_numpy, params_from_numpy
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = So3kratesConfig(feat=8, vec_feat=2, n_layers=1, n_rbf=4,
                           dir_bits=4)
@@ -62,6 +66,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         QuantizedEngine.from_config(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         params_from_numpy({})
+    lm_cfg = get_smoke_config("qwen2-0.5b")
+    for entry in (lambda: init_lm(lm_cfg), lambda: init_cache(lm_cfg, 1, 4),
+                  lambda: init_kv_cache(lm_cfg, 1, 4, torch.float32),
+                  lambda: lm_params_from_numpy({}),
+                  lambda: build_lm(lm_cfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry()
     with pytest.raises(RuntimeError):
         init_params(cfg, device="cuda")
     assert init_params(cfg, device="cpu")["embed"].device.type == "cpu"

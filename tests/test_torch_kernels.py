@@ -8,7 +8,12 @@ integer accumulation, the same epilogue order) and to 1e-6 with the
 Pallas kernel in interpret mode; the MDDQ codes agree except at a
 near-tie (the port normalizes by division, the TPU kernel by a
 reciprocal multiply);
-the edge softmax to 1e-5, its gradients to 1e-4 rel / 1e-5 abs.
+the edge softmax to 1e-5, its gradients to 1e-4 rel / 1e-5 abs; the
+activation quantizer's codes exactly and its scales exactly against the
+JAX formula (to one float32 ulp against the interpret-mode Pallas kernel,
+which XLA rewrites to multiply by 1/127); the int8-KV decode attention to
+2e-4 against the Pallas kernel and its oracle (the JAX gate) and to 1e-6
+against the JAX decode's masked formula.
 
 ``tests/test_torch_cuda.py`` holds the CUDA kernels themselves against
 their plain versions on a card.
@@ -23,9 +28,15 @@ from repro.core import make_codebook as j_make_codebook
 from repro.core.mddq import MDDQConfig as JMDDQConfig
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.act_quant import act_quant as j_act_quant
+from repro.kernels.attention_int8kv import \
+    decode_attention_int8kv as j_decode_attention_int8kv
 from repro_torch.core.codebook import make_codebook
 from repro_torch.core.mddq import MDDQConfig
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.act_quant import act_quant
+from repro_torch.kernels.attention_int8kv import (decode_attention_int8kv,
+                                                 n_splits)
 from repro_torch.kernels.edge_softmax import edge_softmax_fused
 from repro_torch.kernels.mddq_kernel import mddq_encode_kernel
 from repro_torch.kernels.quant_matmul import w4a8_matmul, w8a8_matmul
@@ -276,3 +287,152 @@ class TestEdgeSoftmax:
                 np.testing.assert_array_equal(np.arange(lo, hi) + b * ec,
                                               real)
         assert not raw_sorted
+
+
+# --- activation quantization (K5) ---------------------------------------------
+
+def _rows(seed, m, k, spread=1.0):
+    """Rows of very different magnitudes, the first one all zero."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, k)) * np.exp(spread * rng.normal(size=(m, 1)))
+    x[0] = 0.0
+    return x.astype(np.float32)
+
+
+def _jax_kv_write(k):
+    """``repro/models/lm/attention.py``'s int8 KV write, evaluated op by op
+    (eagerly) in k's dtype, as written."""
+    k_s = (jnp.maximum(jnp.max(jnp.abs(k), -1), 1e-8) / 127.0
+           ).astype(jnp.float32)
+    k_q = jnp.clip(jnp.round(k / k_s[..., None]), -127, 127).astype(jnp.int8)
+    return np.asarray(k_q), np.asarray(k_s)
+
+
+class TestActQuant:
+    @pytest.mark.parametrize("m,k", [(256, 64), (256, 80), (256, 16),
+                                     (64, 896)])
+    def test_matches_jax(self, m, k):
+        """Codes and scales bit for bit with the JAX formula
+        (``ops.quantize_activations``); against the Pallas kernel in
+        interpret mode the codes are equal and the scales within one
+        float32 ulp, because XLA rewrites its ``/ 127`` into a multiply
+        by ``1/127`` (about 4% of the scales move by an ulp)."""
+        x = _rows(m + k, m, k)
+        tq, ts = act_quant(_t(x))
+        jq, js = jops.quantize_activations(jnp.asarray(x))
+        np.testing.assert_array_equal(_np(tq), np.asarray(jq))
+        np.testing.assert_array_equal(_np(ts), np.asarray(js))
+        pq, ps = j_act_quant(jnp.asarray(x), interpret=True)
+        np.testing.assert_array_equal(_np(tq), np.asarray(pq))
+        np.testing.assert_allclose(_np(ts), np.asarray(ps), rtol=1.2e-7,
+                                   atol=0)
+        assert _np(ts)[0, 0] == np.float32(1e-8) / np.float32(127)
+        aq, as_ = ops.quantize_activations(_t(x))
+        assert torch.equal(aq, tq) and torch.equal(as_, ts)
+        assert act_quant.launches == 0
+
+    def test_bf16_scale_is_rounded_to_bf16(self):
+        """The LM decode's KV write takes the scale in bf16 (floor, max and
+        division rounded to bf16), then divides in float32: the port's
+        bf16 path equals that formula exactly, and a float32 scale would
+        not (most scales and some codes would move)."""
+        x = jnp.asarray(_rows(3, 4096, 64), jnp.bfloat16)
+        want_q, want_s = _jax_kv_write(x)
+        xt = _t(np.asarray(x.astype(jnp.float32))).to(torch.bfloat16)
+        tq, ts = act_quant(xt)
+        np.testing.assert_array_equal(_np(tq), want_q)
+        np.testing.assert_array_equal(_np(ts)[:, 0], want_s)
+        assert want_s[0] == np.float32(jnp.bfloat16(1e-8) / 127)
+        fq, fs = act_quant(xt.to(torch.float32))
+        assert (_np(fs)[:, 0] != want_s).sum() > 1000
+        assert (_np(fq) != want_q).sum() > 0
+
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+    def test_prepare_kv_int8_matches_jax(self, dtype):
+        rng = np.random.default_rng(5)
+        k, v = (jnp.asarray(rng.normal(size=(4, 40, 64)) * 2, dtype)
+                for _ in range(2))
+        got = ops.prepare_kv_int8(*(_t(np.asarray(a.astype(jnp.float32)))
+                                    .to(torch.float32 if dtype == jnp.float32
+                                        else torch.bfloat16) for a in (k, v)))
+        if dtype == jnp.float32:
+            want = [np.asarray(a) for a in jops.prepare_kv_int8(k, v)]
+        else:
+            (kq, ks), (vq, vs) = _jax_kv_write(k), _jax_kv_write(v)
+            want = [kq, ks, vq, vs]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(_np(g), w)
+
+
+# --- int8-KV decode attention (K6) ----------------------------------------------
+
+def _kv_problem(seed, bh, s, d, g=1):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(bh, g, d)).astype(np.float32)
+    k = rng.normal(size=(bh, s, d)).astype(np.float32)
+    v = rng.normal(size=(bh, s, d)).astype(np.float32)
+    return q, k, v
+
+
+class TestInt8KVDecode:
+    @pytest.mark.parametrize("bh,s,d,bs", [(4, 512, 128, 256),
+                                           (2, 512, 64, 128)])
+    def test_matches_pallas_and_oracle(self, bh, s, d, bs):
+        """g = 1 and n_valid = S is the TPU kernel's function: held to its
+        interpret-mode Pallas run and its oracle at the JAX gate (2e-4)."""
+        q, k, v = _kv_problem(bh + s, bh, s, d)
+        jk = jops.prepare_kv_int8(jnp.asarray(k), jnp.asarray(v))
+        scale = 1.0 / d ** 0.5
+        out = decode_attention_int8kv(_t(q), *(_t(np.asarray(a)) for a in jk),
+                                      s, scale)
+        pallas = j_decode_attention_int8kv(jnp.asarray(q[:, 0]), *jk, bs=bs,
+                                           interpret=True)
+        oracle = jref.decode_attention_int8kv_ref(
+            jnp.asarray(q[:, 0]), *jk, softmax_scale=scale)
+        np.testing.assert_allclose(_np(out)[:, 0], np.asarray(pallas),
+                                   rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(_np(out)[:, 0], np.asarray(oracle),
+                                   rtol=2e-4, atol=2e-4)
+        assert decode_attention_int8kv.launches == 0
+
+    @pytest.mark.parametrize("n_valid", [1, 37, 96])
+    def test_grouped_layout_matches_the_masked_decode(self, n_valid):
+        """Grouped query heads over a truncated cache equal the JAX
+        decode's formula, which attends over the whole cache with the
+        tokens past ``cur_index`` masked to -1e30 (attention.py:157-175)."""
+        B, nkv, g, S, d = 2, 2, 7, 96, 64
+        q, k, v = _kv_problem(n_valid, B * nkv, S, d, g)
+        k_q, k_s, v_q, v_s = ops.prepare_kv_int8(_t(k), _t(v))
+        scale = d ** -0.5
+        out = decode_attention_int8kv(_t(q), k_q, k_s, v_q, v_s, n_valid,
+                                      scale)
+        jq = jnp.asarray(q).reshape(B, nkv, g, d)
+        kk = (jnp.asarray(_np(k_q)) * jnp.asarray(_np(k_s))[..., None]
+              ).reshape(B, nkv, S, d)
+        vv = (jnp.asarray(_np(v_q)) * jnp.asarray(_np(v_s))[..., None]
+              ).reshape(B, nkv, S, d)
+        logits = jnp.einsum("bkgd,bksd->bkgs", jq, kk) * scale
+        valid = jnp.arange(S)[None, None, None, :] <= n_valid - 1
+        w = jax.nn.softmax(jnp.where(valid, logits, -1e30), -1)
+        want = jnp.einsum("bkgs,bksd->bkgd", w, vv).reshape(B * nkv, g, d)
+        np.testing.assert_allclose(_np(out), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6)
+        if n_valid == 1:      # one token: its value row, for every head
+            np.testing.assert_allclose(
+                _np(out), np.broadcast_to(np.asarray(vv).reshape(
+                    B * nkv, S, d)[:, :1], out.shape), rtol=1e-6, atol=1e-6)
+
+    def test_rejects_an_empty_or_overlong_window(self):
+        q, k, v = _kv_problem(0, 2, 8, 16)
+        kv = ops.prepare_kv_int8(_t(k), _t(v))
+        for n_valid in (0, 9):
+            with pytest.raises(ValueError, match="n_valid"):
+                decode_attention_int8kv(_t(q), *kv, n_valid, 0.25)
+
+    def test_sequence_split_fills_the_card(self):
+        """About two blocks per SM at the decode's 16 rows, never a split
+        shorter than one 32-token tile."""
+        assert n_splits(16, 1) == 1
+        assert n_splits(16, 64) == 2
+        assert n_splits(16, 2048) == 17
+        assert n_splits(300, 2048) == 1
