@@ -4,17 +4,21 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
-   ``src/repro_torch/kernels/csrc`` and prints the build seconds.
+   ``src/repro_torch/kernels/csrc`` and prints the build seconds and
+   ptxas's registers, spills and shared memory for every kernel.
 2. Holds every kernel against its plain PyTorch version on the card at
    the shapes the serving path gives it (paper config, bucket 32, 8
    molecules per batch): the quantized matmuls bit for bit, the edge
    softmax to 1e-5 (and its gradients to 1e-4 rel / 1e-5 abs), the MDDQ
-   encode codes exactly. Times each kernel (CUDA events over back-to-back
-   calls, which at these sizes include the host's launch gaps, and its
-   device time from torch.profiler), its plain version and, where one
-   PyTorch call computes the same function, that call (a yardstick only:
-   the port never calls it), beside the card's least time for the same
-   work.
+   encode codes exactly (random vectors, and the probe set of near ties,
+   poles and vectors under 1e-12 with half the batch zero, through the
+   band search and, on a permuted codebook, the full search). Times each
+   kernel (CUDA events over back-to-back calls, which at these sizes
+   include the host's launch gaps, and its device time and device
+   kernels per call from torch.profiler), its plain version and, where
+   one PyTorch call computes the same function, that call (a yardstick
+   only: the port never calls it), beside the card's least time for the
+   same work.
 3. Serves 16 molecules of 9-24 atoms through ``QuantizedEngine`` at the
    paper's full width (W4A8, MDDQ through the encode kernel) on the
    sparse path, then the dense path, with every kernel's launch count
@@ -38,7 +42,9 @@
    cache bytes and the device idle share of one step.
 
 Phase 2 also holds the act-quant kernel bit for bit (float32 and bf16)
-and the int8-KV decode attention to 1e-5 against their plain versions.
+and the int8-KV decode attention to 1e-5 against their plain versions,
+the latter timed at 2,048 of 2,048 tokens and at the decode's 64 of
+1,024, beside SDPA's event and device times in float32 and bf16.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -119,9 +125,10 @@ def _device_rows(torch, prof):
     return sorted((r for r in rows if r[0] > 0), reverse=True)
 
 
-def device_ms(torch, fn, reps: int = 20):
-    """Device time per call of what ``fn`` launches, from torch.profiler;
-    None when the profiler records no device time."""
+def device_profile(torch, fn, reps: int = 20):
+    """(device ms per call, device kernels per call) of what ``fn``
+    launches, from torch.profiler; (None, 0) when the profiler records no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -130,8 +137,17 @@ def device_ms(torch, fn, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(r[0] for r in _device_rows(torch, prof))
-    return total / reps if total > 0 else None
+    rows = _device_rows(torch, prof)
+    total = sum(r[0] for r in rows)
+    if total <= 0:
+        return None, 0
+    return total / reps, sum(r[1] for r in rows) / reps
+
+
+def device_ms(torch, fn, reps: int = 20):
+    """Device time per call of what ``fn`` launches (torch.profiler);
+    None when the profiler records no device time."""
+    return device_profile(torch, fn, reps)[0]
 
 
 def bound(n_bytes: float, n_ops: float, ops_per_s: float):
@@ -147,6 +163,53 @@ def gpu_identity() -> str:
         timeout=60)
     require(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_resources(log: str):
+    """(kernel, registers, spill store bytes, spill load bytes, static
+    shared bytes) for every kernel in ptxas's report (``-Xptxas -v``)."""
+    import re
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = _demangle(m.group(1)), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers(?:, (?:used \d+ barriers, )?"
+                      r"(\d+) bytes smem)?", line)
+        if m and name:
+            out.append((name, int(m.group(1)), *spills,
+                        int(m.group(2) or 0)))
+            name = None
+    return out
+
+
+def _demangle(sym: str) -> str:
+    """``decode_kernel<64,8>`` from an Itanium-mangled kernel name in an
+    anonymous namespace (``_ZN<n>_GLOBAL__N_...<n>name[I...E]...``); the
+    symbol itself when it does not parse."""
+    import re
+    pos, parts = 3, []
+    while sym.startswith("_ZN") and len(parts) < 2:
+        m = re.match(r"\d+", sym[pos:])
+        if not m:
+            break
+        n = int(m.group(0))
+        parts.append(sym[pos + m.end():pos + m.end() + n])
+        pos += m.end() + n
+    if len(parts) < 2 or "_GLOBAL__N" not in parts[0]:
+        return sym
+    args = re.match(r"I((?:Li-?\d+E|Lb[01]E|\w+?)+?)EE", sym[pos:])
+    if args:
+        vals = re.findall(r"L[ib](-?\d+)E", args.group(1))
+        plain = re.sub(r"^\d+", "", args.group(1))
+        return f"{parts[1]}<{','.join(vals) or plain}>"
+    return parts[1]
 
 
 # --- phase 2: kernels against their plain versions ---------------------------
@@ -286,38 +349,113 @@ def check_edge_softmax(torch, dev, gen, graphs, cfg):
              "shape": f"N={n} E={E} real={e_r} F={F} W={W}"}]
 
 
-def check_mddq_encode(torch, dev, gen, cfg):
-    from repro_torch.core.codebook import make_codebook
+def _mddq_exact(torch, v, cb, label):
+    """The encode kernel's codes against its plain version's: identical."""
     from repro_torch.kernels.mddq_kernel import mddq_encode_kernel
     from repro_torch.kernels.ref import mddq_encode_ref
-    n = M_ROWS * cfg.vec_feat
-    cb = make_codebook(cfg.dir_bits, device=dev)
-    C = cb.shape[0]
-    v = torch.randn(n, 3, generator=gen, device=dev) \
-        * torch.exp(2 * torch.randn(n, 1, generator=gen, device=dev))
-    v[:8] = 0.0                                  # zero vectors (padding)
-    v[8:16] = cb[:8] * 3.0                       # exact codewords
     idx, mag = mddq_encode_kernel(v, cb)
     idx_p, mag_p = mddq_encode_ref(v, cb)
     torch.cuda.synchronize()
     n_idx = int((idx != idx_p).sum())
     n_mag = int((mag != mag_p).sum())
     err = float(max((idx - idx_p).abs().max(), (mag - mag_p).abs().max()))
-    print(f"  mddq_encode N={n} C={C}: idx mismatches {n_idx}, "
-          f"mag mismatches {n_mag}")
+    print(f"  mddq_encode {label} N={v.shape[0]} C={cb.shape[0]}: idx "
+          f"mismatches {n_idx}, mag mismatches {n_mag}")
     require(n_idx == 0 and n_mag == 0,
-            "mddq_encode codes differ from its plain version")
-    ms = time_ms(torch, lambda: mddq_encode_kernel(v, cb), reps=10)
-    dev_ms = device_ms(torch, lambda: mddq_encode_kernel(v, cb), reps=10)
+            f"mddq_encode {label}: codes differ from its plain version")
+    return idx, err
+
+
+def band_work(torch, v, cb, idx):
+    """The codeword-vector pairs and the distinct codewords the band search
+    needs on these inputs: for each nonzero vector, the z-band at its best
+    score (``kernels.mddq_kernel.z_band``), which any certified search of
+    this kind scores."""
+    from repro_torch.kernels.mddq_kernel import z_band
+    from repro_torch.kernels.ref import _norm3
+    u = v / torch.clamp(_norm3(v), min=1e-12)[:, None]
+    c = cb[idx.long()]
+    best = (u[:, 0] * c[:, 0] + u[:, 1] * c[:, 1]) + u[:, 2] * c[:, 2]
+    lo, hi = z_band(u, cb[:, 2], best)
+    nz = (u != 0).any(-1)
+    lo, hi = lo[nz], hi[nz]
+    edges = torch.zeros(cb.shape[0] + 1, dtype=torch.int64, device=v.device)
+    edges.index_add_(0, lo, torch.ones_like(lo))
+    edges.index_add_(0, hi + 1, -torch.ones_like(hi))
+    covered = int((edges.cumsum(0)[:-1] > 0).sum())
+    return int((hi - lo + 1).sum()), covered
+
+
+def check_mddq_encode(torch, dev, gen, cfg):
+    """K4's codes identical to its plain version's: on random vectors of
+    spread magnitudes (timed), on the probe set of
+    ``kernels.mddq_kernel.probe_vectors`` with half the batch zero (the
+    band search), and on the same through the full-search kernel with a
+    permuted codebook."""
+    from repro_torch.core.codebook import make_codebook
+    from repro_torch.kernels.mddq_kernel import (mddq_encode_kernel,
+                                                 probe_vectors)
+    from repro_torch.kernels.ref import mddq_encode_ref
+    n = M_ROWS * cfg.vec_feat
+    cb = make_codebook(cfg.dir_bits, device=dev)
+    require(getattr(cb, "z_sorted", False), "the codebook is not z-sorted")
+    C = cb.shape[0]
+    v = torch.randn(n, 3, generator=gen, device=dev) \
+        * torch.exp(2 * torch.randn(n, 1, generator=gen, device=dev))
+    v[:8] = 0.0                                  # zero vectors (padding)
+    v[8:16] = cb[:8] * 3.0                       # exact codewords
+    idx, err = _mddq_exact(torch, v, cb, "random")
+    probes = torch.cat(list(probe_vectors(cb, seed=0, n=n // 16).values()))
+    require(probes.shape[0] <= n // 2, "too many probe vectors")
+    hard = torch.zeros_like(v)
+    hard[:probes.shape[0]] = probes
+    hard[probes.shape[0]:n // 2] = v[probes.shape[0]:n // 2]
+    _, err_h = _mddq_exact(torch, hard, cb, "probes + half zero")
+    perm = torch.randperm(C, generator=gen, device=dev)
+    cb_perm = cb[perm]
+    _, err_p = _mddq_exact(torch, hard, cb_perm, "probes, permuted codebook")
+
+    def timed(x, book, band):
+        fn = lambda: mddq_encode_kernel(x, book)     # noqa: E731
+        full0 = mddq_encode_kernel.full_launches
+        fn()
+        require((mddq_encode_kernel.full_launches == full0) == band,
+                "mddq_encode took the wrong search")
+        ms = time_ms(torch, fn, reps=10)
+        dev_ms, per_call = device_profile(torch, fn, reps=10)
+        if band:
+            require(dev_ms is None or per_call == 1,
+                    f"the band search ran {per_call} kernels per call")
+            idx_x, _ = mddq_encode_kernel(x, book)
+            pairs, covered = band_work(torch, x, book, idx_x)
+        else:
+            pairs, covered = x.shape[0] * C, C
+        b_ms, b_by = bound(20 * x.shape[0] + 12 * covered, 5 * pairs,
+                           FP32_OPS_PER_S)
+        return {"ms": ms, "device_ms": dev_ms,
+                "device_kernels_per_call": per_call, "bound_ms": b_ms,
+                "bound_by": b_by, "scored_pairs_needed": pairs}
+    band = timed(v, cb, True)
+    band_hard = timed(hard, cb, True)
+    full = timed(hard, cb_perm, False)
+    full_bound = bound(20 * n + 12 * C, 5 * n * C, FP32_OPS_PER_S)[0]
     plain_ms = time_ms(torch, lambda: mddq_encode_ref(v, cb), reps=3,
                        rounds=5)
-    b_ms, b_by = bound(12 * n + 12 * C + 8 * n, 5 * n * C, FP32_OPS_PER_S)
-    return [{"name": "mddq_encode_kernel", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/mddq_encode.cu",
-             "replaces": "src/repro/kernels/mddq_kernel.py:51",
-             "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": None, "shape": f"N={n} C={C}"}]
+    plain_p_ms = time_ms(torch, lambda: mddq_encode_ref(hard, cb_perm),
+                         reps=3, rounds=5)
+    common = {"route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/mddq_encode.cu",
+              "replaces": "src/repro/kernels/mddq_kernel.py:51",
+              "library_ms": None}
+    return [dict(common, name="mddq_encode_kernel",
+                 max_abs_err=max(err, err_h), plain_ms=plain_ms,
+                 full_scan_bound_ms=full_bound, shape=f"N={n} C={C}",
+                 other_shapes=[dict(band_hard, shape=f"N={n} C={C} probes "
+                                    "+ half zero")], **band),
+            dict(common, name="mddq_encode_full_search", max_abs_err=err_p,
+                 plain_ms=plain_p_ms,
+                 shape=f"N={n} C={C} probes + half zero, permuted codebook",
+                 **full)]
 
 
 def check_act_quant(torch, dev, gen):
@@ -373,9 +511,12 @@ def check_decode_attention(torch, dev, gen):
     """K6 within 1e-5 of its plain version at the LM decode's grouping
     (batch 8 x 2 kv heads, 7 query heads each, hd 64): over a 2,048-token
     cache for n_valid 1, 37 and 2048, and over phase 4's cache for n_valid
-    1 and the last position of its greedy run; timed at 2048 against its
-    plain version and, as a yardstick that leaves the dequantization out,
-    scaled_dot_product_attention on the already dequantized cache."""
+    1 and the last position of its greedy run. Timed at both (2,048 of
+    2,048 tokens, 64 of 1,024) against its plain version and, as a
+    yardstick that leaves the dequantization out,
+    scaled_dot_product_attention on the already dequantized valid tokens,
+    in float32 and on their bf16 cast, each by CUDA events and by its
+    device time."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.attention_int8kv import decode_attention_int8kv
@@ -383,11 +524,11 @@ def check_decode_attention(torch, dev, gen):
     B, nkv, g, hd, S = LM_BATCH, 2, 7, 64, 2048
     rows, scale = B * nkv, hd ** -0.5
     q = torch.randn(rows, g, hd, generator=gen, device=dev)
-    errs = []
+    errs, caches = [], {}
     for s_len, valid in ((LM_CACHE, (1, LM_TOKENS)), (S, (1, 37, S))):
         k = torch.randn(rows, s_len, hd, generator=gen, device=dev) * 2
         v = torch.randn(rows, s_len, hd, generator=gen, device=dev)
-        kv = ops.prepare_kv_int8(k, v)
+        kv = caches[s_len] = ops.prepare_kv_int8(k, v)
         for n_valid in valid:
             got = decode_attention_int8kv(q, *kv, n_valid, scale)
             want = decode_attention_int8kv_ref(q, *kv, n_valid, scale)
@@ -399,33 +540,43 @@ def check_decode_attention(torch, dev, gen):
             require(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
                     f"decode_attention_int8kv S={s_len} n_valid={n_valid} "
                     f"differs from its plain version by {err}")
-    ms = time_ms(torch, lambda: decode_attention_int8kv(q, *kv, S, scale))
-    dev_ms = device_ms(torch, lambda: decode_attention_int8kv(q, *kv, S,
-                                                              scale))
-    plain_ms = time_ms(torch, lambda: decode_attention_int8kv_ref(
-        q, *kv, S, scale))
-    k_deq = (kv[0].float() * kv[1][..., None]).reshape(B, nkv, S, hd)
-    v_deq = (kv[2].float() * kv[3][..., None]).reshape(B, nkv, S, hd)
-    q_sdpa = q.reshape(B, nkv * g, 1, hd)
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q_sdpa, k_deq, v_deq, scale=scale, enable_gqa=True))
-    qb, kb, vb = (t.to(torch.bfloat16) for t in (q_sdpa, k_deq, v_deq))
-    lib_bf16_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qb, kb, vb, scale=scale, enable_gqa=True))
-    n_bytes = 2 * rows * g * hd * 4 + rows * S * (2 * hd + 8)
-    b_ms, b_by = bound(n_bytes, rows * S * (4 * g * hd + 2 * hd),
-                       FP32_OPS_PER_S)
-    return [{"name": "decode_attention_int8kv", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/attention_int8kv.cu",
-             "replaces": "src/repro/kernels/attention_int8kv.py:61",
-             "max_abs_err": max(errs), "ms": ms, "device_ms": dev_ms,
-             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": lib_ms, "library_bf16_ms": lib_bf16_ms,
-             "library": "scaled_dot_product_attention(enable_gqa) on the "
-                        "dequantized f32 cache (library_bf16_ms: on its "
-                        "bf16 cast): a yardstick without the "
-                        "dequantization",
-             "shape": f"BH={rows} G={g} D={hd} S={S} n_valid={S}"}]
+
+    def timed(s_len, n_valid):
+        kv = caches[s_len]
+        fn = lambda: decode_attention_int8kv(q, *kv, n_valid, scale)  # noqa
+        ms = time_ms(torch, fn)
+        dev_ms, per_call = device_profile(torch, fn)
+        require(dev_ms is None or per_call == 1,
+                f"decode_attention_int8kv ran {per_call} kernels per call")
+        plain_ms = time_ms(torch, lambda: decode_attention_int8kv_ref(
+            q, *kv, n_valid, scale))
+        k_deq, v_deq = ((c[:, :n_valid].float() * sc[:, :n_valid, None])
+                        .reshape(B, nkv, n_valid, hd)
+                        for c, sc in ((kv[0], kv[1]), (kv[2], kv[3])))
+        f32_args = (q.reshape(B, nkv * g, 1, hd), k_deq, v_deq)
+        lib = {}
+        for name, args in (("", f32_args), ("_bf16", tuple(
+                t.to(torch.bfloat16) for t in f32_args))):
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                *args, scale=scale, enable_gqa=True)
+            lib[f"library{name}_ms"] = time_ms(torch, sdpa)
+            lib[f"library{name}_device_ms"] = device_ms(torch, sdpa)
+        n_bytes = 2 * rows * g * hd * 4 + rows * n_valid * (2 * hd + 8)
+        b_ms, b_by = bound(n_bytes, rows * n_valid * (4 * g * hd + 2 * hd),
+                           FP32_OPS_PER_S)
+        return dict(ms=ms, device_ms=dev_ms, device_kernels_per_call=per_call,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    shape=f"BH={rows} G={g} D={hd} S={s_len} "
+                          f"n_valid={n_valid}", **lib)
+    return [dict(timed(S, S), name="decode_attention_int8kv", route="cuda",
+                 source="src/repro_torch/kernels/csrc/attention_int8kv.cu",
+                 replaces="src/repro/kernels/attention_int8kv.py:61",
+                 max_abs_err=max(errs),
+                 library="scaled_dot_product_attention(enable_gqa) on the "
+                         "dequantized f32 valid tokens (library_bf16_*: on "
+                         "their bf16 cast): a yardstick without the "
+                         "dequantization",
+                 other_shapes=[timed(LM_CACHE, LM_TOKENS)])]
 
 
 # --- phase 3: the engine -----------------------------------------------------
@@ -447,12 +598,20 @@ LM_KERNELS = ("act_quant", "decode_attention_int8kv")
 
 def counted_run(fn):
     """Run ``fn`` with every kernel's launch count set to 0 just before;
-    return (result, {kernel: launches})."""
+    return (result, {kernel: launches}). The MDDQ encode's calls are split
+    by search: ``mddq_encode_kernel`` the band search, and
+    ``mddq_encode_full_search`` the full search."""
+    from repro_torch.kernels.mddq_kernel import mddq_encode_kernel
     counters = kernel_counters()
     for c in counters:
         c.launches = 0
+    mddq_encode_kernel.full_launches = 0
     out = fn()
-    return out, {c.__name__: c.launches for c in counters}
+    counts = {c.__name__: c.launches for c in counters}
+    full = mddq_encode_kernel.full_launches
+    counts["mddq_encode_kernel"] -= full
+    counts["mddq_encode_full_search"] = full
+    return out, counts
 
 
 def max_rel(a_results, b_results):
@@ -613,6 +772,9 @@ def run_engine(torch, dev, cfg, graphs):
         require(launches["dense"][name] > 0,
                 f"{name} was not launched on the dense path")
     for p, n in launches.items():
+        # every codebook the port builds takes the band search
+        require(n["mddq_encode_full_search"] == 0,
+                f"{p}: the MDDQ encode took the full search")
         # one A8 step in front of every quantized matmul, and nothing of
         # the LM decode
         require(n["act_quant"] == n["w8a8_matmul"] + n["w4a8_matmul"],
@@ -867,7 +1029,12 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     _build.library()
     print(f"phase 1: kernels built and loaded in "
-          f"{_build.build_seconds():.1f} s")
+          f"{_build.build_seconds():.1f} s; ptxas per kernel:")
+    resources = kernel_resources(_build.build_log())
+    require(resources, "no ptxas report in the build log")
+    for name, regs, st, ld, smem in resources:
+        print(f"  {name}: {regs} registers, spill stores {st} B, spill "
+              f"loads {ld} B, static shared {smem} B")
 
     cfg = So3kratesConfig(feat=64, vec_feat=16, n_layers=3, n_rbf=16,
                           cutoff=10.0, dir_bits=16)
@@ -880,11 +1047,17 @@ def main() -> int:
     rows += check_act_quant(torch, dev, gen)
     rows += check_decode_attention(torch, dev, gen)
     for r in rows:
-        print(f"  {r['name']} ({r['shape']}): {r['ms']:.5f} ms per call "
-              f"(CUDA events, back to back), device {r['device_ms']} ms "
-              f"(profiler), plain {r['plain_ms']:.5f} ms, library "
-              f"{r['library_ms']} ms, bound {r['bound_ms']:.6f} ms "
-              f"({r['bound_by']})")
+        for t in [r] + r.get("other_shapes", []):
+            lib = ", ".join(f"{k} {t[k]}" for k in sorted(t)
+                            if k.startswith("library") and k != "library")
+            print(f"  {r['name']} ({t['shape']}): {t['ms']:.5f} ms per "
+                  f"call (CUDA events, back to back), device "
+                  f"{t['device_ms']} ms (profiler"
+                  + (f", {t['device_kernels_per_call']} kernels per call"
+                     if "device_kernels_per_call" in t else "")
+                  + f"), plain {t.get('plain_ms', r['plain_ms']):.5f} ms, "
+                  f"{lib or 'library None'}, bound {t['bound_ms']:.6f} ms "
+                  f"({t['bound_by']})")
 
     print("phase 3: QuantizedEngine, paper config, w4a8, MDDQ kernel")
     so3 = run_engine(torch, dev, cfg, graphs)

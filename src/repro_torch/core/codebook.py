@@ -6,7 +6,10 @@ JAX package's, which MDDQ argmax parity depends on). ``nearest_code``
 runs the MDDQ encode kernel (K4) on CUDA tensors and the chunked plain
 search on CPU tensors. Codebooks are stored planar, (3, C), the encode
 kernel's layout, and handed out as their (C, 3) transpose, so the kernel
-takes them without a copy.
+takes them without a copy. ``make_codebook`` also checks once, in numpy,
+whether the z column strictly decreases with the index (it does for
+every Fibonacci codebook) and records it as ``codebook.z_sorted``, which
+sends the encode to the band search.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import torch
 from repro_torch.kernels.mddq_kernel import mddq_encode_kernel
 from repro_torch.kernels.ref import nearest_code_ref
 
-__all__ = ["fibonacci_sphere", "make_codebook", "nearest_code"]
+__all__ = ["fibonacci_sphere", "is_z_sorted", "make_codebook",
+           "nearest_code"]
 
 
 def fibonacci_sphere(n: int) -> np.ndarray:
@@ -34,12 +38,20 @@ def fibonacci_sphere(n: int) -> np.ndarray:
     return (pts / np.linalg.norm(pts, axis=-1, keepdims=True)).astype(np.float32)
 
 
+def is_z_sorted(points: np.ndarray) -> bool:
+    """Whether the z column of a (C, 3) codebook strictly decreases with
+    the index, the property the band search of the encode kernel needs."""
+    return bool(np.all(np.diff(points[:, 2]) < 0))
+
+
 @functools.lru_cache(maxsize=None)
 def _codebook(bits: int, kind: str, device: str) -> torch.Tensor:
     if kind != "fibonacci":
         raise ValueError(f"unknown or unported codebook kind {kind!r}")
-    planar = np.ascontiguousarray(fibonacci_sphere(2 ** bits).T)
-    return torch.from_numpy(planar).to(device).T
+    points = fibonacci_sphere(2 ** bits)
+    cb = torch.from_numpy(np.ascontiguousarray(points.T)).to(device).T
+    cb.z_sorted = is_z_sorted(points)
+    return cb
 
 
 def make_codebook(bits: int = 8, kind: str = "fibonacci",
@@ -47,7 +59,8 @@ def make_codebook(bits: int = 8, kind: str = "fibonacci",
     """(2**bits, 3) float32 codebook on ``device``, cached per (bits,
     kind, device): a 16-bit codebook is 65,536 trig evaluations on the
     host that should run once. The result is the transpose view of a
-    contiguous (3, C) tensor. Callers must not modify it."""
+    contiguous (3, C) tensor, with ``z_sorted`` set. Callers must not
+    modify it."""
     return _codebook(bits, kind, str(torch.device(device)))
 
 

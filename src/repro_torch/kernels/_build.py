@@ -3,6 +3,9 @@
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one
 process per source, all started together), and the objects are linked
 into one shared library with a plain C interface, loaded with ``ctypes``.
+``ptxas`` reports each kernel's registers, spills and shared memory
+(``-Xptxas -v``); the report is kept beside the library
+(:func:`build_log`).
 The build happens at first use, keyed by a hash of the sources and the
 flags, into ``build/repro_torch/<hash>/`` under the checkout (a directory
 ``.gitignore`` lists); ``REPRO_TORCH_BUILD_DIR`` moves it. A finished
@@ -25,13 +28,14 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["library", "build_seconds", "check", "SOURCES"]
+__all__ = ["library", "build_seconds", "build_log", "check", "SOURCES"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("quant_matmul.cu", "edge_softmax.cu", "mddq_encode.cu",
            "act_quant.cu", "attention_int8kv.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-Xcompiler", "-fPIC")
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_LOG = "nvcc.log"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _F = ctypes.c_float
@@ -43,11 +47,13 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _P),
     "repro_mddq_encode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _F, _F, _F, _F, _I, _P),
+    "repro_mddq_encode_band": (_P, _P, _P, _P, _I, _I, _I, _I,
+                               _F, _F, _F, _F, _I, _P),
     "repro_act_quant_f32": (_P, _P, _P, _I, _I, _I, _P),
     "repro_act_quant_bf16": (_P, _P, _P, _I, _I, _I, _P),
     "repro_decode_attention_int8kv": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                                      _P),
+                                      _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                      _F, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -90,13 +96,16 @@ def _compile(out_dir: Path) -> None:
         cmd = [nvcc, *_FLAGS, "-c", str(_CSRC / name), "-o", str(obj)]
         procs.append((name, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    errors = []
+    errors, logs = [], []
     for name, p in procs:
         out, _ = p.communicate()
+        text = f"{name}:\n{out.decode(errors='replace')}"
+        logs.append(text)
         if p.returncode != 0:
-            errors.append(f"{name}:\n{out.decode(errors='replace')}")
+            errors.append(text)
     if errors:
         raise RuntimeError("nvcc failed\n" + "\n".join(errors))
+    (out_dir / _LOG).write_text("\n".join(logs))
     objs = [str(out_dir / (Path(n).stem + ".o")) for n in SOURCES]
     res = subprocess.run(
         [nvcc, *_FLAGS, "-shared", *objs, "-o", str(out_dir / "libkernels.so")],
@@ -135,6 +144,13 @@ def library() -> ctypes.CDLL:
         _lib = lib
         _build_seconds = time.monotonic() - t0
         return lib
+
+
+def build_log() -> str:
+    """nvcc's output for the loaded library's sources, ptxas's report of
+    every kernel included."""
+    library()
+    return (_build_root() / _source_hash() / _LOG).read_text()
 
 
 def build_seconds() -> float:

@@ -13,23 +13,31 @@ kernel attends to tokens ``[0, n_valid)``, which is the same function,
 since a masked token's weight is exactly 0 in float32. The TPU kernel's
 rule ``S % bs == 0`` is a TPU tiling contract and is not copied.
 
-The kernel dequantizes K and V in shared memory and runs the online
-softmax (running max, denominator and accumulator, all f32) over tiles
-of 32 tokens. The sequence is split across blocks, with a second small
-kernel combining the splits in order: at batch 8 with 2 kv heads there
-are only 16 rows for 132 SMs, so the split, and not the rows, fills the
-card (about two blocks per SM, and never a split without a token).
+The kernel takes one launch. Each block of 4 warps takes a sequence
+split of one row, and each warp a contiguous run of whole 32-token steps
+with its own online-softmax state in registers (lane t scores token t
+against the row's G heads; each lane accumulates D / 32 fixed dims of
+P.V); the warps merge once at the end. With several splits the last
+block of a row to finish combines the row's splits in order, counted by
+a per-row ticket in a buffer this module keeps per device and stream
+(the kernel resets each ticket it uses, so the buffer is zeroed once).
+The splits give every warp at least one 32-token step and the card at
+most about two blocks per SM: at the decode's 16 rows, up to 128 valid
+tokens take one block per row and no combine.
 
 What bounds it on the H100: bytes (2 * D code bytes and 8 scale bytes
-per cached token, against about 4 * G * D flops); at the decode's
-shapes (16 rows of at most 1,024 tokens) the two launches take longer.
+per cached token, against about 4 * G * D flops) at long caches; at the
+decode's shapes (16 rows of at most a few hundred valid tokens) the
+latency of one launch and one round trip to device memory.
 
 ``decode_attention_int8kv.launches`` counts calls that launched the
-kernels (one per call; CPU calls do not count).
+kernel (one launch per call; CPU calls do not count).
 """
 from __future__ import annotations
 
 import math
+import threading
+from typing import Dict, Iterator, Tuple
 
 import torch
 
@@ -37,17 +45,61 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._launch import check_tensor, stream_of
 from repro_torch.kernels.ref import decode_attention_int8kv_ref
 
-__all__ = ["decode_attention_int8kv", "n_splits"]
+__all__ = ["decode_attention_int8kv", "n_splits", "split_plan",
+           "warp_token_ranges"]
 
-_TILE = 32                 # tokens per shared-memory tile (csrc TILE)
+_WARPS = 4                 # warps per block (csrc WARPS)
+_STEP = 32                 # tokens a warp takes per step (one per lane)
 _TARGET_BLOCKS = 2 * 132   # two blocks per H100 SM
+_HEAD_DIMS = (8, 64, 128)  # the kernel's instantiations
+_MAX_GROUP = 16
+
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+_tickets_lock = threading.Lock()
 
 
 def n_splits(rows: int, n_valid: int) -> int:
     """How many sequence splits the kernel runs: enough blocks for about
-    two per SM, but never a split shorter than one tile."""
-    return max(1, min(math.ceil(n_valid / _TILE),
+    two per SM, but never fewer than one 32-token step per warp."""
+    return max(1, min(math.ceil(n_valid / (_WARPS * _STEP)),
                       math.ceil(_TARGET_BLOCKS / max(rows, 1))))
+
+
+def split_plan(rows: int, n_valid: int) -> Tuple[int, int, int]:
+    """(splits, chunk, run): split y takes the tokens [y * chunk,
+    min((y + 1) * chunk, n_valid)), and warp w of its block the run of
+    ``run`` tokens from y * chunk + w * run within it. chunk and run are
+    whole 32-token steps; no split is empty."""
+    splits = n_splits(rows, n_valid)
+    chunk = math.ceil(math.ceil(n_valid / splits) / _STEP) * _STEP
+    splits = math.ceil(n_valid / chunk)
+    run = math.ceil(chunk / _STEP / _WARPS) * _STEP
+    return splits, chunk, run
+
+
+def warp_token_ranges(rows: int, n_valid: int
+                      ) -> Iterator[Tuple[int, int, int, int]]:
+    """(split, warp, first token, end) of every warp's run, as the kernel
+    indexes them (an empty run has end <= first)."""
+    splits, chunk, run = split_plan(rows, n_valid)
+    for y in range(splits):
+        split_end = min(y * chunk + chunk, n_valid)
+        for w in range(_WARPS):
+            begin = y * chunk + w * run
+            yield y, w, begin, min(begin + run, split_end)
+
+
+def _ticket_buffer(dev: torch.device, stream: int, rows: int) -> torch.Tensor:
+    """The per-row tickets of the split combine on ``dev`` and ``stream``,
+    zeroed when first made (one memset) and kept zero by the kernel."""
+    key = (dev.index, stream)
+    with _tickets_lock:
+        buf = _tickets.get(key)
+        if buf is None or buf.numel() < rows:
+            buf = torch.zeros((max(rows, 256),), dtype=torch.int32,
+                              device=dev)
+            _tickets[key] = buf
+        return buf
 
 
 def decode_attention_int8kv(q: torch.Tensor, k_q: torch.Tensor,
@@ -71,19 +123,28 @@ def decode_attention_int8kv(q: torch.Tensor, k_q: torch.Tensor,
                                ("k_scale", k_scale, torch.float32, (bh, s)),
                                ("v_scale", v_scale, torch.float32, (bh, s))):
         check_tensor(name, t, dt, shape, dev)
-    splits = n_splits(bh, n_valid)
-    chunk = math.ceil(math.ceil(n_valid / splits) / _TILE) * _TILE
-    splits = math.ceil(n_valid / chunk)
+    if d not in _HEAD_DIMS or not 1 <= g <= _MAX_GROUP:
+        raise ValueError(f"head_dim {d} and group {g}: the kernel takes "
+                         f"head_dim in {_HEAD_DIMS} and 1..{_MAX_GROUP} "
+                         "query heads per kv head")
+    for name, t in (("q", q), ("k_q", k_q), ("v_q", v_q)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel loads 16-byte vectors; "
+                             "its data must be 16-byte aligned")
+    splits, chunk, run = split_plan(bh, n_valid)
+    stream = stream_of(dev)
     out = torch.empty((bh, g, d), dtype=torch.float32, device=dev)
     part_m = torch.empty((bh, splits, g), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((bh, splits, g, d), dtype=torch.float32,
                            device=dev)
+    tickets = _ticket_buffer(dev, stream, bh)
     err = _build.library().repro_decode_attention_int8kv(
         q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
         v_scale.data_ptr(), out.data_ptr(), part_m.data_ptr(),
-        part_l.data_ptr(), part_acc.data_ptr(), bh, g, d, s, n_valid, chunk,
-        splits, float(softmax_scale), dev.index, stream_of(dev))
+        part_l.data_ptr(), part_acc.data_ptr(), tickets.data_ptr(), bh, g, d,
+        s, n_valid, chunk, run, splits, float(softmax_scale), dev.index,
+        stream)
     _build.check(err, "repro_decode_attention_int8kv")
     decode_attention_int8kv.launches += 1
     return out

@@ -22,7 +22,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.act_quant import act_quant
 from repro_torch.kernels.attention_int8kv import decode_attention_int8kv
 from repro_torch.kernels.edge_softmax import edge_softmax_fused
-from repro_torch.kernels.mddq_kernel import mddq_encode_kernel
+from repro_torch.kernels.mddq_kernel import mddq_encode_kernel, probe_vectors
 from repro_torch.kernels.quant_matmul import w4a8_matmul, w8a8_matmul
 from repro_torch.launch import serve
 from repro_torch.models.lm.transformer import init_cache
@@ -105,6 +105,28 @@ def test_mddq_encode_exact(cuda, n, bits):
     assert torch.equal(idx_r, idx) and torch.equal(mag_r, mag)
 
 
+def test_mddq_encode_probe_vectors_exact(cuda):
+    """16 bits, every probe kind (near ties, poles, equator, codewords,
+    vectors under 1e-12) and as many zeros: the band search, one launch
+    per call; then a permuted codebook through the full search."""
+    cb = make_codebook(16, device=cuda)
+    v = torch.cat(list(probe_vectors(cb, seed=1, n=256).values()))
+    v = torch.cat([v, torch.zeros_like(v)])
+    before = (mddq_encode_kernel.launches, mddq_encode_kernel.full_launches)
+    idx, mag = mddq_encode_kernel(v, cb)
+    assert (mddq_encode_kernel.launches, mddq_encode_kernel.full_launches) \
+        == (before[0] + 1, before[1])
+    idx_p, mag_p = ref.mddq_encode_ref(v, cb)
+    assert torch.equal(idx, idx_p) and torch.equal(mag, mag_p)
+    perm = torch.randperm(cb.shape[0], generator=torch.Generator().manual_seed(0))
+    cb_perm = cb[perm.to(cuda)]
+    idx, mag = mddq_encode_kernel(v, cb_perm)
+    assert (mddq_encode_kernel.launches, mddq_encode_kernel.full_launches) \
+        == (before[0] + 2, before[1] + 1)
+    idx_p, mag_p = ref.mddq_encode_ref(v, cb_perm)
+    assert torch.equal(idx, idx_p) and torch.equal(mag, mag_p)
+
+
 def test_engine_on_card_matches_cpu_plain_path(cuda):
     cfg = So3kratesConfig(feat=16, vec_feat=4, n_layers=2, n_rbf=4,
                           dir_bits=6, cutoff=3.0)
@@ -151,7 +173,7 @@ def test_act_quant_rejects_bad_arguments(cuda):
         act_quant(torch.zeros(8, 4, device=cuda).T)
 
 
-@pytest.mark.parametrize("n_valid", [1, 31, 32, 33, 37, 1000, 2048])
+@pytest.mark.parametrize("n_valid", [1, 31, 32, 33, 37, 64, 65, 1000, 2048])
 def test_decode_attention_int8kv_matches_plain(cuda, n_valid):
     g = torch.Generator(device=cuda).manual_seed(n_valid)
     bh, grp, s, d = 16, 7, 2048, 64
@@ -173,13 +195,47 @@ def test_decode_attention_int8kv_matches_plain(cuda, n_valid):
     assert torch.equal(again, got)
 
 
+@pytest.mark.parametrize("grp,s,n_valid", [(1, 512, 512), (1, 2048, 129),
+                                            (7, 1024, 64), (7, 1024, 1)])
+def test_decode_attention_int8kv_shapes(cuda, grp, s, n_valid):
+    """g = 1 (the TPU kernel's own layout) and the LM decode's 1,024-token
+    cache at its last greedy position: one launch per call."""
+    g = torch.Generator(device=cuda).manual_seed(s + n_valid)
+    q = torch.randn(16, grp, 64, generator=g, device=cuda)
+    k, v = (torch.randn(16, s, 64, generator=g, device=cuda)
+            for _ in range(2))
+    kv = ops.prepare_kv_int8(k, v)
+    before = decode_attention_int8kv.launches
+    got = decode_attention_int8kv(q, *kv, n_valid, 0.125)
+    assert decode_attention_int8kv.launches == before + 1
+    torch.testing.assert_close(
+        got, ref.decode_attention_int8kv_ref(q, *kv, n_valid, 0.125),
+        rtol=1e-5, atol=1e-5)
+    # the same call again: the split combine's tickets were reset
+    assert torch.equal(decode_attention_int8kv(q, *kv, n_valid, 0.125), got)
+
+
+def test_decode_attention_int8kv_rejects_unsupported(cuda):
+    q = torch.randn(2, 4, 32, device=cuda)
+    kv = ops.prepare_kv_int8(torch.randn(2, 8, 32, device=cuda),
+                             torch.randn(2, 8, 32, device=cuda))
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention_int8kv(q, *kv, 8, 0.25)
+    q = torch.randn(2, 17, 64, device=cuda)
+    kv = ops.prepare_kv_int8(torch.randn(2, 8, 64, device=cuda),
+                             torch.randn(2, 8, 64, device=cuda))
+    with pytest.raises(ValueError, match="group"):
+        decode_attention_int8kv(q, *kv, 8, 0.25)
+
+
 def test_decode_attention_int8kv_wide_heads(cuda):
-    """llama3.2-3b's grouping (g=3, hd=128) and a group wide enough to need
-    more than 48 KB of shared memory (g=16, hd=128)."""
-    for grp in (3, 16):
+    """llama3.2-3b's grouping (g=3, hd=128), a group wide enough to need
+    more than 48 KB of shared memory (g=16, hd=128), and the smoke
+    configs' head_dim 8 (g=7)."""
+    for grp, hd in ((3, 128), (16, 128), (7, 8)):
         g = torch.Generator(device=cuda).manual_seed(grp)
-        q = torch.randn(4, grp, 128, generator=g, device=cuda)
-        k, v = (torch.randn(4, 300, 128, generator=g, device=cuda)
+        q = torch.randn(4, grp, hd, generator=g, device=cuda)
+        k, v = (torch.randn(4, 300, hd, generator=g, device=cuda)
                 for _ in range(2))
         kv = ops.prepare_kv_int8(k, v)
         torch.testing.assert_close(

@@ -431,8 +431,9 @@ class TestInt8KVDecode:
 
     def test_sequence_split_fills_the_card(self):
         """About two blocks per SM at the decode's 16 rows, never a split
-        shorter than one 32-token tile."""
+        shorter than one 32-token step for each of its block's 4 warps:
+        the decode's first 128 positions take one block per row."""
         assert n_splits(16, 1) == 1
-        assert n_splits(16, 64) == 2
-        assert n_splits(16, 2048) == 17
+        assert n_splits(16, 64) == 1
+        assert n_splits(16, 2048) == 16
         assert n_splits(300, 2048) == 1
