@@ -8,8 +8,11 @@
    ptxas's registers, spills and shared memory for every kernel.
 2. Holds every kernel against its plain PyTorch version on the card at
    the shapes the serving path gives it (paper config, bucket 32, 8
-   molecules per batch): the quantized matmuls bit for bit, the edge
-   softmax to 1e-5 (and its gradients to 1e-4 rel / 1e-5 abs), the MDDQ
+   molecules per batch): the quantized matmuls bit for bit through both
+   entries (int8 activations, and float32 activations quantized in the
+   same launch, the serving path's), the edge softmax to 1e-5 at the
+   serving layout and at 63 edges per receiver (and its gradients to 1e-4
+   rel / 1e-5 abs), the MDDQ
    encode codes exactly (random vectors, and the probe set of near ties,
    poles and vectors under 1e-12 with half the batch zero, through the
    band search and, on a permuted codebook, the full search). Times each
@@ -28,7 +31,8 @@
    card vs CPU (the same batch with MDDQ off; the MDDQ codes that differ
    per layer).
    Prints per-batch latency, the device idle share and the LEE. The A8
-   step in front of every quantized matmul runs in the act-quant kernel.
+   step of every quantized matmul runs inside its launch: one f32-A
+   matmul launch per quantized product, and no act-quant launch.
 4. Serves the int8-KV decode of qwen2-0.5b at full width (24 layers,
    d_model 896, 14 heads over 2 KV heads, vocab 151,936; W8 weights,
    bf16 activations) through ``repro_torch.launch.serve``: batch 8, a
@@ -79,7 +83,8 @@ LM_FORCED_STEPS = 8
 LM_KERNEL_TOL = 5e-2
 TRUNK_W8 = (64, 192)         # wq | wk | wm
 TRUNK_W4 = (64, 32)          # wa | wb
-OTHER_W8 = {"w_upd": (64, 64), "w_vnorm": (16, 64), "ro_w1": (80, 64)}
+OTHER_W8 = {"w_upd": (64, 64), "w_vnorm": (16, 64), "ro_w1": (80, 64),
+            "ro_w2": (64, 1)}
 
 
 class SmokeFailure(Exception):
@@ -127,21 +132,22 @@ def _device_rows(torch, prof):
 
 def device_profile(torch, fn, reps: int = 20):
     """(device ms per call, device kernels per call) of what ``fn``
-    launches, from torch.profiler; (None, 0) when the profiler records no
-    device time."""
+    launches, from torch.profiler; (None, 0) when three profiles in a row
+    record no device time (seen once on the card, for one kernel)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = _device_rows(torch, prof)
-    total = sum(r[0] for r in rows)
-    if total <= 0:
-        return None, 0
-    return total / reps, sum(r[1] for r in rows) / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = _device_rows(torch, prof)
+        total = sum(r[0] for r in rows)
+        if total > 0:
+            return total / reps, sum(r[1] for r in rows) / reps
+    return None, 0
 
 
 def device_ms(torch, fn, reps: int = 20):
@@ -150,9 +156,13 @@ def device_ms(torch, fn, reps: int = 20):
     return device_profile(torch, fn, reps)[0]
 
 
-def bound(n_bytes: float, n_ops: float, ops_per_s: float):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float,
+          fp32_ops: float = 0.0):
+    """The card's least time (ms) for the work: the larger of the bytes
+    over the memory rate and the operations over their types' peak rates
+    (``fp32_ops`` beside ``n_ops`` at ``ops_per_s``), and which it is."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
+    t_ops = (n_ops / ops_per_s + fp32_ops / FP32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -215,50 +225,70 @@ def _demangle(sym: str) -> str:
 # --- phase 2: kernels against their plain versions ---------------------------
 
 def check_quant_matmul(torch, dev, gen):
+    """K1/K2 through both entries at every product shape of the serving
+    path: the int8-A entries (the TPU kernels' contract) against the plain
+    matmul, the f32-A entries (the A8 step in the same launch, the main
+    path) against ``act_quant_ref`` followed by it, each bit for bit, with
+    an all-zero row (scale 1e-8 / 127). Timed at the trunk shapes, with one
+    device kernel per call required, beside ``torch._int_mm`` + scales."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.quant_matmul import w4a8_matmul, w8a8_matmul
-    rows = []
-    shapes = [("trunk_w8", *TRUNK_W8)] + [(k, *v) for k, v in
-                                           OTHER_W8.items()]
-    for w4 in (False, True):
-        for name, k, n in ([("trunk_w4", *TRUNK_W4)] if w4 else shapes):
-            x = torch.randn(M_ROWS, k, generator=gen, device=dev)
-            w = torch.randn(k, n, generator=gen, device=dev)
-            a_q, a_s = ops.quantize_activations(x)
-            w_q, w_s = ops.prepare_w4(w) if w4 else ops.prepare_w8(w)
-            kern = w4a8_matmul if w4 else w8a8_matmul
-            plain = ref.w4a8_matmul_ref if w4 else ref.w8a8_matmul_ref
-            got = kern(a_q, a_s, w_q, w_s)
-            want = plain(a_q, a_s, w_q, w_s)
+    from repro_torch.kernels.quant_matmul import (w4a8_matmul,
+                                                  w4a8_matmul_f32a,
+                                                  w8a8_matmul,
+                                                  w8a8_matmul_f32a)
+    rows = {}
+    shapes = [("trunk_w8", *TRUNK_W8, False), ("trunk_w4", *TRUNK_W4, True)]
+    shapes += [(name, k, n, False) for name, (k, n) in OTHER_W8.items()]
+    for name, k, n, w4 in shapes:
+        x = torch.randn(M_ROWS, k, generator=gen, device=dev)
+        x[0] = 0.0
+        w = torch.randn(k, n, generator=gen, device=dev)
+        a_q, a_s = ops.quantize_activations(x)
+        w_q, w_s = ops.prepare_w4(w) if w4 else ops.prepare_w8(w)
+        plain = ref.w4a8_matmul_ref if w4 else ref.w8a8_matmul_ref
+        cases = (
+            (w4a8_matmul if w4 else w8a8_matmul, (a_q, a_s, w_q, w_s),
+             lambda: plain(a_q, a_s, w_q, w_s), M_ROWS * k + 4 * M_ROWS),
+            (w4a8_matmul_f32a if w4 else w8a8_matmul_f32a, (x, w_q, w_s),
+             lambda: plain(*ref.act_quant_ref(x), w_q, w_s), 4 * M_ROWS * k))
+        for kern, args, plain_fn, a_bytes in cases:
+            got = kern(*args)
+            want = plain_fn()
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             print(f"  {kern.__name__} {name} M={M_ROWS} K={k} N={n}: "
                   f"bit-identical={torch.equal(got, want)} max_abs_err={err}")
             require(torch.equal(got, want),
                     f"{kern.__name__} {name} differs from its plain version")
-            if name.startswith("trunk"):
-                ms = time_ms(torch, lambda: kern(a_q, a_s, w_q, w_s))
-                dev_ms = device_ms(torch, lambda: kern(a_q, a_s, w_q, w_s))
-                plain_ms = time_ms(torch, lambda: plain(a_q, a_s, w_q, w_s))
-                lib_ms = None
-                if not w4:
-                    lib_ms = time_ms(torch, lambda: torch._int_mm(a_q, w_q)
-                                     .to(torch.float32) * a_s * w_s)
-                w_bytes = k * n // 2 if w4 else k * n
-                n_bytes = M_ROWS * k + 4 * M_ROWS + w_bytes + 4 * n \
-                    + 4 * M_ROWS * n
-                b_ms, b_by = bound(n_bytes, 2 * M_ROWS * n * k,
-                                   INT8_OPS_PER_S)
-                rows.append({
-                    "name": kern.__name__, "route": "cuda",
-                    "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
-                    "replaces": ("src/repro/kernels/quant_matmul.py:119"
-                                 if w4 else
-                                 "src/repro/kernels/quant_matmul.py:83"),
-                    "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": lib_ms, "shape": f"M={M_ROWS} K={k} N={n}"})
-    return rows
+            row = rows.setdefault(kern.__name__, {
+                "name": kern.__name__, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
+                "replaces": ("src/repro/kernels/quant_matmul.py:119" if w4
+                             else "src/repro/kernels/quant_matmul.py:83"),
+                "max_abs_err": 0.0, "library_ms": None})
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if not name.startswith("trunk"):
+                continue
+            fn = lambda: kern(*args)                     # noqa: E731
+            dev_ms, per_call = device_profile(torch, fn)
+            require(dev_ms is None or per_call == 1,
+                    f"{kern.__name__} ran {per_call} kernels per call")
+            w_bytes = k * n // 2 if w4 else k * n
+            n_bytes = a_bytes + w_bytes + 4 * n + 4 * M_ROWS * n
+            b_ms, b_by = bound(n_bytes, 2 * M_ROWS * n * k, INT8_OPS_PER_S,
+                               fp32_ops=4 * M_ROWS * k
+                               if kern.__name__.endswith("f32a") else 0)
+            row.update(ms=time_ms(torch, fn), device_ms=dev_ms,
+                       device_kernels_per_call=per_call,
+                       plain_ms=time_ms(torch, plain_fn), bound_ms=b_ms,
+                       bound_by=b_by, shape=f"M={M_ROWS} K={k} N={n}")
+            if kern is w8a8_matmul:
+                lib = lambda: (torch._int_mm(a_q, w_q)          # noqa: E731
+                               .to(torch.float32) * a_s * w_s)
+                row.update(library_ms=time_ms(torch, lib),
+                           library_device_ms=device_ms(torch, lib),
+                           library="torch._int_mm + the two scales")
+    return list(rows.values())
 
 
 def serving_edge_list(graphs, cutoff):
@@ -273,12 +303,24 @@ def serving_edge_list(graphs, cutoff):
     return el, plan.batch_size * 32
 
 
-def check_edge_softmax(torch, dev, gen, graphs, cfg):
+def every_pair_edge_list(cutoff):
+    """Four 64-atom molecules inside one cutoff: every receiver has 63
+    real edges, two of the kernel's 32-edge chunks."""
+    from repro_torch.serving import build_edge_list
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(0, cutoff / 2, size=(4, 64, 3)).astype(np.float32)
+    el = build_edge_list(coords, np.ones((4, 64), bool), cutoff, 4096)
+    require(el is not None and el.n_real == 4 * 64 * 63,
+            "the every-pair layout is not fully connected")
+    return el, 4 * 64
+
+
+def _edge_softmax_case(torch, dev, gen, el, n, cap, cfg):
+    """K3 against its plain version on one edge list (1e-5, empty
+    receivers exactly 0), timed; returns (inputs, record)."""
     from repro_torch.core.attention_norm import l2_normalize
-    from repro_torch.kernels import ops
     from repro_torch.kernels.edge_softmax import edge_softmax_fused
     from repro_torch.kernels.ref import edge_softmax_ref
-    el, n = serving_edge_list(graphs, cfg.cutoff)
     F, W = cfg.feat, cfg.feat + 3 * cfg.vec_feat
     E = el.senders.shape[0]
     s = torch.from_numpy(el.senders).to(dev)
@@ -288,7 +330,7 @@ def check_edge_softmax(torch, dev, gen, graphs, cfg):
     k = l2_normalize(torch.randn(n, F, generator=gen, device=dev))
     bias = torch.randn(E, generator=gen, device=dev)
     vals = torch.randn(E, W, generator=gen, device=dev)
-    got = edge_softmax_fused(q, k, bias, vals, s, r, m, 32)
+    got = edge_softmax_fused(q, k, bias, vals, s, r, m, cap)
     want = edge_softmax_ref(q, k, bias, s, r, m, vals, n)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
@@ -296,12 +338,38 @@ def check_edge_softmax(torch, dev, gen, graphs, cfg):
     has_edge[r[m].long()] = True
     n_empty = int((~has_edge).sum())
     empty_zero = bool((got[~has_edge] == 0).all())
-    print(f"  edge_softmax N={n} E={E} real={el.n_real} F={F} W={W}: "
-          f"max_abs_err={err}, {n_empty} empty receivers exactly 0: "
-          f"{empty_zero}")
+    shape = f"N={n} E={E} real={el.n_real} F={F} W={W}"
+    print(f"  edge_softmax {shape}: max_abs_err={err}, {n_empty} empty "
+          f"receivers exactly 0: {empty_zero}")
     require(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
-            f"edge_softmax differs from its plain version by {err}")
+            f"edge_softmax {shape} differs from its plain version by {err}")
     require(empty_zero, "edge_softmax: an empty receiver is not exactly 0")
+
+    fn = lambda: edge_softmax_fused(q, k, bias, vals, s, r, m, cap)  # noqa
+    dev_ms, per_call = device_profile(torch, fn)
+    require(dev_ms is None or per_call == 1,
+            f"edge_softmax ran {per_call} kernels per call")
+    e_r = el.n_real
+    n_bytes = 2 * n * F * 4 + e_r * (4 + 4 * W + 4 + 4 + 1) + n * W * 4
+    b_ms, b_by = bound(n_bytes, e_r * (2 * F + 3 * W + 8), FP32_OPS_PER_S)
+    record = {"ms": time_ms(torch, fn), "device_ms": dev_ms,
+              "device_kernels_per_call": per_call,
+              "plain_ms": time_ms(torch, lambda: edge_softmax_ref(
+                  q, k, bias, s, r, m, vals, n)),
+              "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+              "shape": shape}
+    return (q, k, bias, vals, s, r, m), record
+
+
+def check_edge_softmax(torch, dev, gen, graphs, cfg):
+    """K3 at the serving batch's layout (and its backward) and at the
+    every-pair layout (63 edges per receiver)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import edge_softmax_ref
+    el, n = serving_edge_list(graphs, cfg.cutoff)
+    (q, k, bias, vals, s, r, m), serving = _edge_softmax_case(
+        torch, dev, gen, el, n, 32, cfg)
+    W = vals.shape[1]
 
     # the Function's backward against plain autograd, both fed one output
     # cotangent: a loss such as sum(out**2) would also feed the backward
@@ -331,22 +399,15 @@ def check_edge_softmax(torch, dev, gen, graphs, cfg):
     print("  edge_softmax gradients (autograd.Function vs plain autograd, "
           "one cotangent): within 1e-4 rel / 1e-5 abs")
 
-    ms = time_ms(torch, lambda: edge_softmax_fused(q, k, bias, vals, s, r,
-                                                   m, 32))
-    dev_ms = device_ms(torch, lambda: edge_softmax_fused(q, k, bias, vals, s,
-                                                         r, m, 32))
-    plain_ms = time_ms(torch, lambda: edge_softmax_ref(q, k, bias, s, r, m,
-                                                       vals, n))
-    e_r = el.n_real
-    n_bytes = 2 * n * F * 4 + e_r * (4 + 4 * W + 4 + 4 + 1) + n * W * 4
-    b_ms, b_by = bound(n_bytes, e_r * (2 * F + 3 * W + 8), FP32_OPS_PER_S)
-    return [{"name": "edge_softmax_fused", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/edge_softmax.cu",
-             "replaces": "src/repro/kernels/edge_softmax.py:100",
-             "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": None,
-             "shape": f"N={n} E={E} real={e_r} F={F} W={W}"}]
+    el_all, n_all = every_pair_edge_list(cfg.cutoff)
+    _, every_pair = _edge_softmax_case(torch, dev, gen, el_all, n_all, 64,
+                                       cfg)
+    return [dict(serving, name="edge_softmax_fused", route="cuda",
+                 source="src/repro_torch/kernels/csrc/edge_softmax.cu",
+                 replaces="src/repro/kernels/edge_softmax.py:100",
+                 max_abs_err=max(serving["max_abs_err"],
+                                 every_pair["max_abs_err"]),
+                 library_ms=None, other_shapes=[every_pair])]
 
 
 def _mddq_exact(torch, v, cb, label):
@@ -586,13 +647,19 @@ def kernel_counters():
     from repro_torch.kernels.attention_int8kv import decode_attention_int8kv
     from repro_torch.kernels.edge_softmax import edge_softmax_fused
     from repro_torch.kernels.mddq_kernel import mddq_encode_kernel
-    from repro_torch.kernels.quant_matmul import w4a8_matmul, w8a8_matmul
-    return [w8a8_matmul, w4a8_matmul, edge_softmax_fused, mddq_encode_kernel,
-            act_quant, decode_attention_int8kv]
+    from repro_torch.kernels.quant_matmul import (w4a8_matmul,
+                                                  w4a8_matmul_f32a,
+                                                  w8a8_matmul,
+                                                  w8a8_matmul_f32a)
+    return [w8a8_matmul, w4a8_matmul, w8a8_matmul_f32a, w4a8_matmul_f32a,
+            edge_softmax_fused, mddq_encode_kernel, act_quant,
+            decode_attention_int8kv]
 
 
-SO3_KERNELS = ("w8a8_matmul", "w4a8_matmul", "edge_softmax_fused",
-               "mddq_encode_kernel", "act_quant")
+# the SO3 path quantizes activations inside the matmul kernel: the int8-A
+# entries and the act-quant kernel are not on it
+SO3_KERNELS = ("w8a8_matmul_f32a", "w4a8_matmul_f32a", "edge_softmax_fused",
+               "mddq_encode_kernel")
 LM_KERNELS = ("act_quant", "decode_attention_int8kv")
 
 
@@ -600,17 +667,35 @@ def counted_run(fn):
     """Run ``fn`` with every kernel's launch count set to 0 just before;
     return (result, {kernel: launches}). The MDDQ encode's calls are split
     by search: ``mddq_encode_kernel`` the band search, and
-    ``mddq_encode_full_search`` the full search."""
+    ``mddq_encode_full_search`` the full search. ``quantized_products``
+    counts the calls of ``ops.matmul_w8a8``/``matmul_w4a8``, the serving
+    path's quantized matmul entries."""
+    from repro_torch.kernels import ops
     from repro_torch.kernels.mddq_kernel import mddq_encode_kernel
     counters = kernel_counters()
     for c in counters:
         c.launches = 0
     mddq_encode_kernel.full_launches = 0
-    out = fn()
+    entries = {k: getattr(ops, k) for k in ("matmul_w8a8", "matmul_w4a8")}
+    products = [0]
+
+    def counting(fn_):
+        def call(*args, **kw):
+            products[0] += 1
+            return fn_(*args, **kw)
+        return call
+    for k, fn_ in entries.items():
+        setattr(ops, k, counting(fn_))
+    try:
+        out = fn()
+    finally:
+        for k, fn_ in entries.items():
+            setattr(ops, k, fn_)
     counts = {c.__name__: c.launches for c in counters}
     full = mddq_encode_kernel.full_launches
     counts["mddq_encode_kernel"] -= full
     counts["mddq_encode_full_search"] = full
+    counts["quantized_products"] = products[0]
     return out, counts
 
 
@@ -767,21 +852,23 @@ def run_engine(torch, dev, cfg, graphs):
     for name in SO3_KERNELS:
         require(launches["sparse"][name] > 0,
                 f"{name} was not launched on the sparse path")
-    for name in ("w8a8_matmul", "w4a8_matmul", "mddq_encode_kernel",
-                 "act_quant"):
+    for name in ("w8a8_matmul_f32a", "w4a8_matmul_f32a",
+                 "mddq_encode_kernel"):
         require(launches["dense"][name] > 0,
                 f"{name} was not launched on the dense path")
     for p, n in launches.items():
         # every codebook the port builds takes the band search
         require(n["mddq_encode_full_search"] == 0,
                 f"{p}: the MDDQ encode took the full search")
-        # one A8 step in front of every quantized matmul, and nothing of
-        # the LM decode
-        require(n["act_quant"] == n["w8a8_matmul"] + n["w4a8_matmul"],
-                f"{p}: {n['act_quant']} act_quant launches for "
-                f"{n['w8a8_matmul'] + n['w4a8_matmul']} quantized matmuls")
-        require(n["decode_attention_int8kv"] == 0,
-                f"{p}: the LM attention kernel ran on the SO3 path")
+        # one launch per quantized product, the A8 step inside it: no
+        # act-quant or int8-A launch, and nothing of the LM decode
+        fused = n["w8a8_matmul_f32a"] + n["w4a8_matmul_f32a"]
+        require(fused == n["quantized_products"] > 0,
+                f"{p}: {fused} f32-A matmul launches for "
+                f"{n['quantized_products']} quantized products")
+        for name in ("act_quant", "w8a8_matmul", "w4a8_matmul",
+                     "decode_attention_int8kv"):
+            require(n[name] == 0, f"{p}: {name} ran on the SO3 path")
 
     for p, res in results.items():
         for g, r in zip(graphs, res):

@@ -28,11 +28,14 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["library", "build_seconds", "build_log", "check", "SOURCES"]
+__all__ = ["library", "build_seconds", "build_log", "check", "SOURCES",
+           "HEADERS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("quant_matmul.cu", "edge_softmax.cu", "mddq_encode.cu",
            "act_quant.cu", "attention_int8kv.cu")
+# included by the sources above: hashed with them, so an edit rebuilds
+HEADERS = ("act_quant.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LOG = "nvcc.log"
@@ -43,6 +46,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "repro_qmm_w8a8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_qmm_w4a8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_qmm_w8a8_f32a": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_qmm_w4a8_f32a": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_edge_softmax": (_P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _P),
     "repro_mddq_encode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -82,7 +87,7 @@ def _build_root() -> Path:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -6,15 +6,9 @@
 //   q[m, k]  = clip(round_half_even(x[m, k] / scale[m]), -127, 127)
 //
 // x (M, K) row-major, float32 or bfloat16; q (M, K) int8; scale (M,) f32.
-//
-// For float32 input every operation is the plain version's float32
-// operation (fmaxf, __fdiv_rn, rintf), so codes and scales match
-// kernels/ref.py's act_quant_ref bit for bit. For bfloat16 input the scale
-// follows the LM decode's KV write (src/repro/models/lm/attention.py), which
-// computes it in the activation dtype: the floor is 1e-8 rounded to bf16, the
-// max and the division by 127 are taken in bf16 (the float32 quotient rounded
-// once to bf16, as XLA's and PyTorch's CPU bf16 division do), and only then
-// is the scale widened to float32. The codes then divide in float32.
+// The arithmetic, bit for bit with kernels/ref.py's act_quant_ref in both
+// input types, is in act_quant.cuh, which the f32-A entries of the
+// quantized matmul share; this kernel serves the LM decode's KV write.
 //
 // Design: one warp per row. The warp reduces the row's abs-max with
 // shuffles, then makes a second pass over the row (from L1/L2: the row was
@@ -28,30 +22,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "act_quant.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int ROWS_PER_BLOCK = THREADS / 32;
-
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-}
-
-template <typename T>
-__device__ __forceinline__ float row_scale(float amax);
-
-template <>
-__device__ __forceinline__ float row_scale<float>(float amax) {
-    return __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f);
-}
-
-template <>
-__device__ __forceinline__ float row_scale<__nv_bfloat16>(float amax) {
-    const float floor = __bfloat162float(__float2bfloat16_rn(1e-8f));
-    return __bfloat162float(
-        __float2bfloat16_rn(__fdiv_rn(fmaxf(amax, floor), 127.0f)));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -63,18 +39,14 @@ act_quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
     const T* xr = x + (size_t)row * K;
 
     float amax = 0.0f;
-    for (int k = lane; k < K; k += 32) amax = fmaxf(amax, fabsf(load(xr + k)));
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    for (int k = lane; k < K; k += 32)
+        amax = fmaxf(amax, fabsf(a8::load(xr + k)));
+    amax = a8::warp_max(amax);
 
-    const float s = row_scale<T>(amax);
+    const float s = a8::row_scale<T>(amax);
     int8_t* qr = q + (size_t)row * K;
-    for (int k = lane; k < K; k += 32) {
-        float r = rintf(__fdiv_rn(load(xr + k), s));
-        r = fminf(fmaxf(r, -127.0f), 127.0f);
-        qr[k] = (int8_t)(int)r;
-    }
+    for (int k = lane; k < K; k += 32)
+        qr[k] = (int8_t)a8::code(a8::load(xr + k), s);
     if (lane == 0) scale[row] = s;
 }
 

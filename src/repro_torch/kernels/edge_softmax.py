@@ -5,32 +5,41 @@ Replaces the Pallas TPU kernel ``edge_softmax_kernel`` of
 :func:`edge_softmax_fused` launches ``csrc/edge_softmax.cu`` or raises; on
 a CPU tensor it runs ``kernels.ref.edge_softmax_ref``.
 
-The kernel gives one warp to each receiver node: it finds the node's
-real edges by binary search over the molecule's slot range (keyed by
-receiver, with masked padding slots keyed past every node, because
-``build_edge_list`` pads with self-loops that are not in receiver order),
-then runs the online-softmax recurrence over them with lanes across the
-feature and value columns. A node with no real edge gets exactly 0.
+The kernel gives one warp to each receiver node, four warps to a block.
+The warp finds the node's real edges by a 32-ary search over the
+molecule's slot range (a ballot over one probe per lane and round, keyed
+by receiver, with masked padding slots keyed past every node, because
+``build_edge_list`` pads with self-loops that are not in receiver order);
+a node with no real edge writes exactly 0 and stops there. The edges go
+in chunks of up to 32, one per lane for the logits, with one warp max and
+one warp sum per chunk rescaling a running softmax state, and lanes
+across the value columns for P.V. :func:`segment_bounds_model` and
+:func:`chunked_softmax_model` repeat both steps on the CPU.
 
 What bounds it on the H100: memory. Per real edge it reads a key row and
-a value row and does a few flops per byte; every row is read by a whole
-warp on consecutive addresses. The TPU kernel's one-hot (be, cap)
+a value row and does a few flops per byte; at the serving shape the
+bytes take ~0.5 us, and the launch and each warp's few dependent round
+trips to memory take the rest. The TPU kernel's one-hot (be, cap)
 matmuls, which put the scatter on the MXU, have no counterpart here.
 
 ``edge_softmax_fused.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import check_tensor, stream_of
 from repro_torch.kernels.ref import edge_softmax_ref
 
-__all__ = ["edge_softmax_fused", "MAX_F", "MAX_W"]
+__all__ = ["edge_softmax_fused", "MAX_F", "MAX_W", "CHUNK",
+           "segment_bounds_model", "chunked_softmax_model"]
 
-MAX_F = 128   # query/key width the kernel keeps in registers (4 per lane)
+MAX_F = 128   # query/key width of the kernel's shared query row
 MAX_W = 256   # value width of the register accumulator (8 per lane)
+CHUNK = 32    # edges per softmax step: one per lane
+_INT_MAX = 2 ** 31 - 1
 
 
 def edge_softmax_fused(q_scaled: torch.Tensor, k: torch.Tensor,
@@ -75,3 +84,66 @@ def edge_softmax_fused(q_scaled: torch.Tensor, k: torch.Tensor,
 
 
 edge_softmax_fused.launches = 0
+
+
+# --- the kernel's two steps, on the CPU ---------------------------------------
+
+def _search_round(lo, hi, keys, target):
+    """csrc ``search_round``: one probe per lane at lo + j * stride, a
+    ballot of the probes below target (a prefix: the keys are sorted)."""
+    stride = (hi - lo + 31) // 32
+    probes = lo + stride * np.arange(32)
+    probes = probes[probes < hi]
+    c = int((keys[probes] < target).sum())
+    if c == 0:
+        return lo, lo
+    return lo + (c - 1) * stride + 1, min(hi, lo + c * stride)
+
+
+def segment_bounds_model(receivers: np.ndarray, edge_mask: np.ndarray,
+                         node: int, cap: int, ec: int):
+    """The kernel's 32-ary search for ``node``'s real edges: (start, end,
+    rounds), with [start, end) the slots keyed ``node`` under the key
+    ``mask ? receiver : INT_MAX`` in the node's molecule; both bounds move
+    in the same rounds, as in the kernel."""
+    keys = np.where(edge_mask, receivers.astype(np.int64), _INT_MAX)
+    b = node // cap
+    s = e = (b * ec, (b + 1) * ec)
+    rounds = 0
+    while s[0] < s[1] or e[0] < e[1]:
+        if s[0] < s[1]:
+            s = _search_round(*s, keys, node)
+        if e[0] < e[1]:
+            e = _search_round(*e, keys, node + 1)
+        rounds += 1
+    return s[0], e[0], rounds
+
+
+def chunked_softmax_model(q_scaled, k, bias, values, senders, receivers,
+                          edge_mask, cap: int) -> torch.Tensor:
+    """The kernel's arithmetic per node in float32: segments from
+    :func:`segment_bounds_model`, then per chunk of up to 32 edges the
+    logits, one max and one sum, and the running (max, denominator,
+    accumulator) rescaled by ``exp(m_old - m_new)``; 0 for a node with no
+    real edge."""
+    n = q_scaled.shape[0]
+    ec = values.shape[0] // (n // cap)
+    recv, mask = receivers.numpy(), edge_mask.numpy()
+    out = torch.zeros((n, values.shape[1]), dtype=torch.float32)
+    for node in range(n):
+        start, end, _ = segment_bounds_model(recv, mask, node, cap, ec)
+        m_run = torch.tensor(float("-inf"))
+        l_run = torch.tensor(0.0)
+        acc = torch.zeros(values.shape[1])
+        for c0 in range(start, end, CHUNK):
+            c1 = min(c0 + CHUNK, end)
+            logits = k[senders[c0:c1].long()] @ q_scaled[node] + bias[c0:c1]
+            m_new = torch.maximum(m_run, logits.max())
+            corr = torch.exp(m_run - m_new)
+            p = torch.exp(logits - m_new)
+            l_run = l_run * corr + p.sum()
+            acc = acc * corr + p @ values[c0:c1]
+            m_run = m_new
+        if end > start:
+            out[node] = acc / l_run
+    return out

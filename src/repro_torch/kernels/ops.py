@@ -1,11 +1,12 @@
 """Public entry points around the kernels: counterpart of
 ``repro/kernels/ops.py``.
 
-Each entry quantizes activations where the kernel needs it (through the
-act-quant kernel), calls the kernel wrapper (the CUDA kernel on CUDA
-tensors, its plain version on CPU tensors) and, where forces must
-differentiate through it, carries the straight-through or reference
-backward as a ``torch.autograd.Function``.
+Each entry calls a kernel wrapper (the CUDA kernel on CUDA tensors, its
+plain version on CPU tensors) and, where forces must differentiate
+through it, carries the straight-through or reference backward as a
+``torch.autograd.Function``. The quantized matmuls take float32
+activations and quantize them inside the matmul kernel (one launch per
+product); the act-quant kernel serves the LM decode's KV write.
 The TPU wrappers' padding to 128-multiples (of the matmul operands and
 of the MDDQ codebook) is not copied: the CUDA kernels mask ragged shapes
 themselves.
@@ -22,7 +23,8 @@ from repro_torch.kernels import attention_int8kv as _attn
 from repro_torch.kernels.act_quant import act_quant
 from repro_torch.kernels.edge_softmax import edge_softmax_fused
 from repro_torch.kernels.mddq_kernel import mddq_encode_kernel
-from repro_torch.kernels.quant_matmul import w4a8_matmul, w8a8_matmul
+from repro_torch.kernels.quant_matmul import (w4a8_matmul_f32a,
+                                              w8a8_matmul_f32a)
 from repro_torch.kernels.ref import edge_softmax_ref
 
 __all__ = ["prepare_w8", "prepare_w4", "quantize_activations",
@@ -56,16 +58,15 @@ def quantize_activations(x: torch.Tensor):
 
 def matmul_w8a8(x: torch.Tensor, w_q: torch.Tensor,
                 w_scale: torch.Tensor) -> torch.Tensor:
-    """y = x @ dequant(w) with per-row A8 activations. x: (M, K) f32."""
-    a_q, a_scale = quantize_activations(x)
-    return w8a8_matmul(a_q, a_scale, w_q, w_scale)
+    """y = x @ dequant(w) with per-row A8 activations. x: (M, K) f32,
+    quantized as :func:`quantize_activations` does, in the same launch."""
+    return w8a8_matmul_f32a(x.contiguous(), w_q, w_scale)
 
 
 def matmul_w4a8(x: torch.Tensor, w_packed: torch.Tensor,
                 w_scale: torch.Tensor) -> torch.Tensor:
     """y = x @ dequant(w); w_packed: (K, N//2) uint8 nibbles."""
-    a_q, a_scale = quantize_activations(x)
-    return w4a8_matmul(a_q, a_scale, w_packed, w_scale)
+    return w4a8_matmul_f32a(x.contiguous(), w_packed, w_scale)
 
 
 # --- MDDQ encode (K4) ---------------------------------------------------------

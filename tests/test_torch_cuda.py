@@ -5,7 +5,8 @@ has no CPU mode). On the card, with no JAX installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the quantized matmuls, the MDDQ encode codes and the
+Tolerances: the quantized matmuls (int8-A and f32-A entries), the MDDQ
+encode codes and the
 activation quantizer (float32 and bfloat16) exactly (the kernels repeat
 their plain versions' arithmetic in the same order); the edge softmax and
 the int8-KV decode attention to 1e-5 (their sums run in another order).
@@ -23,7 +24,8 @@ from repro_torch.kernels.act_quant import act_quant
 from repro_torch.kernels.attention_int8kv import decode_attention_int8kv
 from repro_torch.kernels.edge_softmax import edge_softmax_fused
 from repro_torch.kernels.mddq_kernel import mddq_encode_kernel, probe_vectors
-from repro_torch.kernels.quant_matmul import w4a8_matmul, w8a8_matmul
+from repro_torch.kernels.quant_matmul import (w4a8_matmul, w4a8_matmul_f32a,
+                                              w8a8_matmul, w8a8_matmul_f32a)
 from repro_torch.launch import serve
 from repro_torch.models.lm.transformer import init_cache
 from repro_torch.models.so3krates import So3kratesConfig
@@ -40,32 +42,152 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 3, 2), (37, 80, 64), (256, 64, 192),
-                                   (130, 100, 66)])
+MATMUL_SHAPES = [(1, 3, 2), (37, 80, 64), (256, 64, 192), (130, 100, 66),
+                 (256, 16, 64), (256, 80, 64), (256, 64, 32), (255, 17, 66),
+                 (256, 80, 1), (5, 300, 70)]
+
+
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES)
 def test_quant_matmul_bit_for_bit(cuda, m, k, n):
     g = torch.Generator(device=cuda).manual_seed(m)
     a_q, a_s = ops.quantize_activations(
         torch.randn(m, k, generator=g, device=cuda))
     w = torch.randn(k, n, generator=g, device=cuda)
     w8, s8 = ops.prepare_w8(w)
-    w4, s4 = ops.prepare_w4(w)
     before = w8a8_matmul.launches
     assert torch.equal(w8a8_matmul(a_q, a_s, w8, s8),
                        ref.w8a8_matmul_ref(a_q, a_s, w8, s8))
-    assert torch.equal(w4a8_matmul(a_q, a_s, w4, s4),
-                       ref.w4a8_matmul_ref(a_q, a_s, w4, s4))
+    if n % 2 == 0:                     # W4 packs column pairs
+        w4, s4 = ops.prepare_w4(w)
+        assert torch.equal(w4a8_matmul(a_q, a_s, w4, s4),
+                           ref.w4a8_matmul_ref(a_q, a_s, w4, s4))
     assert w8a8_matmul.launches == before + 1
 
 
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES)
+def test_quant_matmul_f32a_bit_for_bit(cuda, m, k, n):
+    """The f32-A entries against act_quant_ref followed by the plain
+    matmul, with an all-zero row (scale 1e-8 / 127) and a row below the
+    floor; one launch per call and no act-quant launch."""
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    x = torch.randn(m, k, generator=g, device=cuda) \
+        * torch.exp(torch.randn(m, 1, generator=g, device=cuda))
+    x[0] = 0.0
+    if m > 2:
+        x[1] = 1e-9
+    w = torch.randn(k, n, generator=g, device=cuda)
+    a_q, a_s = ref.act_quant_ref(x)
+    before = (w8a8_matmul_f32a.launches, w4a8_matmul_f32a.launches,
+              act_quant.launches)
+    w8, s8 = ops.prepare_w8(w)
+    assert torch.equal(w8a8_matmul_f32a(x, w8, s8),
+                       ref.w8a8_matmul_ref(a_q, a_s, w8, s8))
+    if n % 2 == 0:
+        w4, s4 = ops.prepare_w4(w)
+        assert torch.equal(w4a8_matmul_f32a(x, w4, s4),
+                           ref.w4a8_matmul_ref(a_q, a_s, w4, s4))
+    assert (w8a8_matmul_f32a.launches, w4a8_matmul_f32a.launches,
+            act_quant.launches) == (before[0] + 1,
+                                    before[1] + (n % 2 == 0), before[2])
+
+
 def test_quant_matmul_rejects_bad_arguments(cuda):
-    a_q, a_s = ops.quantize_activations(torch.randn(8, 16, device=cuda))
+    x = torch.randn(8, 16, device=cuda)
+    a_q, a_s = ops.quantize_activations(x)
     w, s = ops.prepare_w8(torch.randn(16, 8, device=cuda))
+    w4, s4 = ops.prepare_w4(torch.randn(16, 8, device=cuda))
     with pytest.raises(TypeError):
         w8a8_matmul(a_q, a_s, w.to(torch.uint8), s)
     with pytest.raises(ValueError):
         w8a8_matmul(a_q, a_s, w.t().contiguous().t(), s)
     with pytest.raises(ValueError):
         w8a8_matmul(a_q, a_s, w.cpu(), s)
+    with pytest.raises(TypeError):
+        w4a8_matmul(a_q, a_s, w, s4)
+    with pytest.raises(TypeError):
+        w8a8_matmul_f32a(x.to(torch.bfloat16), w, s)
+    with pytest.raises(TypeError):
+        w8a8_matmul_f32a(x, w.to(torch.uint8), s)
+    with pytest.raises(TypeError):
+        w4a8_matmul_f32a(x, w, s4)
+    with pytest.raises(ValueError):
+        w8a8_matmul_f32a(x[:, :8], w, s)
+    with pytest.raises(ValueError):
+        w8a8_matmul_f32a(x.t().contiguous().t(), w, s)
+    with pytest.raises(ValueError):
+        w4a8_matmul_f32a(x, w4.cpu(), s4)
+
+
+def _edge_inputs(el, B, cap, F, W, dev, seed):
+    rng = np.random.default_rng(seed)
+    n, e = B * cap, el.receivers.shape[0]
+    t = lambda a: torch.from_numpy(np.array(a)).to(dev)   # noqa: E731
+    q, k = (t(rng.normal(size=(n, F)).astype(np.float32)) for _ in range(2))
+    bias = t(rng.normal(size=(e,)).astype(np.float32))
+    vals = t(rng.normal(size=(e, W)).astype(np.float32))
+    return q, k, bias, vals, t(el.senders), t(el.receivers), t(el.edge_mask)
+
+
+def _edge_softmax_exact_zeros(got, r, m, n):
+    has_edge = torch.zeros(n, dtype=torch.bool, device=got.device)
+    has_edge[r[m].long()] = True
+    assert (got[~has_edge] == 0).all()
+
+
+def test_edge_softmax_every_pair_connected(cuda):
+    """64-atom molecules whose cutoff connects every pair: 63 real edges
+    per receiver, two chunks of the kernel's softmax; one launch."""
+    B, cap, F, W = 4, 64, 64, 112
+    rng = np.random.default_rng(7)
+    coords = rng.uniform(0, 3.0, size=(B, cap, 3)).astype(np.float32)
+    mask = np.ones((B, cap), bool)
+    mask[3, 40:] = False
+    el = build_edge_list(coords, mask, 10.0, 4096)
+    assert el.n_real == 3 * 64 * 63 + 40 * 39
+    q, k, bias, vals, s, r, m = _edge_inputs(el, B, cap, F, W, cuda, 1)
+    before = edge_softmax_fused.launches
+    got = edge_softmax_fused(q, k, bias, vals, s, r, m, cap)
+    assert edge_softmax_fused.launches == before + 1
+    want = ref.edge_softmax_ref(q, k, bias, s, r, m, vals, B * cap)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    _edge_softmax_exact_zeros(got, r, m, B * cap)
+
+
+@pytest.mark.parametrize("F,W", [(16, 28), (128, 256), (13, 30), (64, 111)])
+def test_edge_softmax_widths(cuda, F, W):
+    """The smallest and largest widths the serving configs use (F=16,
+    W=28 and the kernel's limits F=128, W=256), and widths that are not
+    multiples of 4 (the kernel's single-float path)."""
+    rng = np.random.default_rng(F + W)
+    B, cap = 4, 32
+    coords = rng.uniform(0, 8.6, size=(B, cap, 3)).astype(np.float32)
+    mask = np.ones((B, cap), bool)
+    mask[1, 10:] = False
+    el = build_edge_list(coords, mask, 3.0, 1024)
+    q, k, bias, vals, s, r, m = _edge_inputs(el, B, cap, F, W, cuda, F)
+    got = edge_softmax_fused(q, k, bias, vals, s, r, m, cap)
+    want = ref.edge_softmax_ref(q, k, bias, s, r, m, vals, B * cap)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    _edge_softmax_exact_zeros(got, r, m, B * cap)
+
+
+def test_edge_softmax_rejects_bad_arguments(cuda):
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(0, 5.0, size=(2, 16, 3)).astype(np.float32)
+    el = build_edge_list(coords, np.ones((2, 16), bool), 3.0, 256)
+    q, k, bias, vals, s, r, m = _edge_inputs(el, 2, 16, 16, 28, cuda, 0)
+    with pytest.raises(ValueError):
+        edge_softmax_fused(q, k, bias, vals, s, r, m, 15)
+    with pytest.raises(ValueError):
+        edge_softmax_fused(torch.zeros(32, 129, device=cuda), k, bias, vals,
+                           s, r, m, 16)
+    with pytest.raises(TypeError):
+        edge_softmax_fused(q, k, bias, vals, s.long(), r, m, 16)
+    with pytest.raises(ValueError):
+        edge_softmax_fused(q, k.cpu(), bias, vals, s, r, m, 16)
+    with pytest.raises(ValueError):
+        edge_softmax_fused(q, k, bias, vals.t().contiguous().t(), s, r, m,
+                           16)
 
 
 def test_edge_softmax_matches_plain(cuda):
@@ -133,12 +255,16 @@ def test_engine_on_card_matches_cpu_plain_path(cuda):
     graphs = random_graphs(6, 1, 14, cfg.n_species, seed=0)
     serve = ServeConfig(mode="w4a8", path="sparse", bucket_sizes=(16,),
                         max_batch=8, mddq_kernel=True)
-    counters = (w8a8_matmul, w4a8_matmul, edge_softmax_fused,
+    counters = (w8a8_matmul_f32a, w4a8_matmul_f32a, edge_softmax_fused,
                 mddq_encode_kernel)
     before = [c.launches for c in counters]
+    quiet = [c.launches for c in (act_quant, w8a8_matmul, w4a8_matmul)]
     card = QuantizedEngine.from_config(cfg, serve=serve,
                                        device=cuda).infer_batch(graphs)
     assert all(c.launches > b for c, b in zip(counters, before))
+    # the A8 step runs inside the matmul launches
+    assert [c.launches for c in (act_quant, w8a8_matmul, w4a8_matmul)] \
+        == quiet
     cpu = QuantizedEngine.from_config(cfg, serve=serve,
                                       device="cpu").infer_batch(graphs)
     f_scale = max(float(np.abs(r.forces).max()) for r in cpu)

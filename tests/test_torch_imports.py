@@ -92,6 +92,14 @@ def test_kernel_build_needs_nvcc_not_an_import():
         assert (PKG / "kernels" / "csrc" / name).exists()
 
 
+def test_every_kernel_source_is_built_or_hashed():
+    """Every file under csrc is compiled (``SOURCES``) or included by
+    one and hashed with them (``HEADERS``), so an edit rebuilds."""
+    from repro_torch.kernels import _build
+    csrc = {p.name for p in (PKG / "kernels" / "csrc").iterdir()}
+    assert csrc == set(_build.SOURCES) | set(_build.HEADERS)
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path, alone):
     """``chip_smoke.py`` must exit non-zero and print no result when there

@@ -1,9 +1,14 @@
-"""What the MDDQ encode (K4) and int8-KV decode attention (K6) kernels
-decide, held on the CPU.
+"""What the quantized matmul (K1/K2), the edge softmax (K3), the MDDQ
+encode (K4) and the int8-KV decode attention (K6) kernels decide, held on
+the CPU.
 
 The CUDA kernels cannot run here (``tests/test_torch_cuda.py`` holds them
 to their plain versions on a card). What their host side and algorithms
-decide can: the band search's plain model (seed window, certificate,
+decide can: K1/K2's staged tiles and tensor-core fragments must give the
+plain version's product bit for bit with no shared-memory bank conflict,
+K3's 32-ary search must find the same segments as a lower bound and its
+chunked softmax must stay within 1e-6 of the plain version; the band
+search's plain model (seed window, certificate,
 rescan of the z-band) must give the full search's codes exactly, and
 K6's split arithmetic must cover every valid token once, with the
 kernel's decomposition (per-warp online softmax, warps merged in order,
@@ -18,12 +23,17 @@ import torch
 
 from repro_torch.core.codebook import fibonacci_sphere, is_z_sorted, \
     make_codebook
+from repro_torch.core.quantizers import unpack_int4
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import quant_matmul as qmm
 from repro_torch.kernels.attention_int8kv import (n_splits, split_plan,
                                                   warp_token_ranges)
+from repro_torch.kernels.edge_softmax import (chunked_softmax_model,
+                                              segment_bounds_model)
 from repro_torch.kernels.mddq_kernel import (band_search_model,
                                              probe_vectors, seed_half_width,
                                              z_band)
+from repro_torch.serving.bucketing import build_edge_list
 
 KINDS = ("gaussian", "codewords", "poles", "equator", "index_midpoints",
          "spiral_midpoints", "zero", "tiny")
@@ -200,3 +210,168 @@ class TestDecodeMerge:
         got = _kernel_model(q, *kv, n_valid, d ** -0.5)
         want = ref.decode_attention_int8kv_ref(q, *kv, n_valid, d ** -0.5)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# --- K1/K2: the staged tiles and the tensor-core fragments --------------------
+
+MATMUL_SHAPES = [(256, 64, 192, False), (256, 16, 64, False),
+                 (256, 80, 64, False), (256, 64, 32, True),
+                 (1, 3, 2, False), (1, 3, 2, True), (255, 17, 66, False),
+                 (255, 17, 66, True), (5, 300, 70, False),
+                 (5, 300, 70, True)]
+
+
+def _operands(m, k, n, w4, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.normal(size=(m, k)) * 2).astype(np.float32))
+    x[0] = 0.0                                   # the 1e-8 floor
+    w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32))
+    a_q, a_s = ref.act_quant_ref(x)
+    w_q, w_s = ops.prepare_w4(w) if w4 else ops.prepare_w8(w)
+    return a_q, a_s, w_q, w_s
+
+
+class TestQuantMatmulStaging:
+    @pytest.mark.parametrize("m,k,n,w4", MATMUL_SHAPES)
+    def test_model_is_bit_for_bit_and_conflict_free(self, m, k, n, w4):
+        """The kernel's staging (K padded to 32, the 4x4 byte transpose,
+        W4 sign-extension in the transposed tile) fed through the
+        m16n8k32 fragment layouts gives the plain version's result bit for
+        bit, and no shared store or fragment read has a bank conflict."""
+        a_q, a_s, w_q, w_s = _operands(m, k, n, w4, seed=m + k + n)
+        got, conflict_free = qmm.mma_model(a_q.numpy(), a_s.numpy(),
+                                           w_q.numpy(), w_s.numpy(), w4)
+        plain = ref.w4a8_matmul_ref if w4 else ref.w8a8_matmul_ref
+        np.testing.assert_array_equal(got, plain(a_q, a_s, w_q, w_s).numpy())
+        assert conflict_free
+
+    @pytest.mark.parametrize("k", [16, 17, 64, 80, 128, 300])
+    def test_k_is_zero_padded_to_32(self, k):
+        a_q, _, w_q, _ = _operands(20, k, 64, False, seed=k)
+        for k0 in range(0, k, qmm.KC):
+            As, Ws, kp, _ = qmm.staging_model(a_q.numpy(), w_q.numpy(), 64,
+                                              False, 0, 0, k0)
+            assert kp % 32 == 0 and kp >= min(qmm.KC, k - k0)
+            a_bytes = qmm._bytes_of(As[:, :kp // 4]).reshape(qmm.BM, kp)
+            w_bytes = qmm._bytes_of(Ws[:, :kp // 4]).reshape(qmm.BN, kp)
+            live = min(qmm.KC, k - k0)
+            np.testing.assert_array_equal(
+                a_bytes[:, :live], a_q.numpy()[:qmm.BM, k0:k0 + live])
+            np.testing.assert_array_equal(
+                w_bytes[:, :live], w_q.numpy()[k0:k0 + live].T)
+            assert not a_bytes[:, live:].any() and not w_bytes[:, live:].any()
+
+    def test_w4_tile_is_the_w8_tile_of_its_nibbles(self):
+        _, _, w4, _ = _operands(1, 80, 66, True, seed=1)
+        w8 = unpack_int4(w4)
+        for n0 in (0, 64):
+            _, ws4, _, _ = qmm.staging_model(np.zeros((1, 80), np.int8),
+                                             w4.numpy(), 66, True, 0, n0, 0)
+            _, ws8, _, _ = qmm.staging_model(np.zeros((1, 80), np.int8),
+                                             w8.numpy(), 66, False, 0, n0, 0)
+            np.testing.assert_array_equal(ws4, ws8)
+
+    def test_byte_transpose(self):
+        rng = np.random.default_rng(0)
+        rows = [rng.integers(0, 2 ** 32, 1000, dtype=np.uint64)
+                .astype(np.uint32) for _ in range(4)]
+        cols = qmm._transpose4(rows)
+        got = np.stack([qmm._bytes_of(c) for c in cols], axis=1)
+        want = np.stack([qmm._bytes_of(r) for r in rows], axis=2)
+        np.testing.assert_array_equal(got, want)
+
+    def test_nibble_sign_extension(self):
+        p = np.arange(2 ** 16, dtype=np.uint32)
+        got = qmm._bytes_of(qmm._sext_nibbles(p)).astype(np.int64)
+        nib = (p[:, None] >> (4 * np.arange(4))) & 0xF
+        np.testing.assert_array_equal(got, np.where(nib >= 8, nib - 16, nib))
+
+
+# --- K3: the 32-ary segment search and the chunked softmax --------------------
+
+def _lower_bound(receivers, edge_mask, lo, hi, target):
+    keys = np.where(edge_mask, receivers.astype(np.int64), 2 ** 31 - 1)
+    return lo + int(np.searchsorted(keys[lo:hi], target, side="left"))
+
+
+def _layouts():
+    """build_edge_list layouts: padded atoms and padding self-loops, an
+    isolated atom, an all-padding molecule, and a molecule whose receivers
+    each have 99 real edges."""
+    rng = np.random.default_rng(0)
+    B, cap = 4, 32
+    coords = rng.uniform(0, 8.6, size=(B, cap, 3)).astype(np.float32)
+    coords[0, 5] = 1e3                               # an isolated atom
+    mask = np.ones((B, cap), bool)
+    mask[0, 20:] = False
+    mask[2] = False                                  # all padding
+    out = [(build_edge_list(coords, mask, 3.0, 1024), cap, True)]
+    dense = rng.uniform(0, 2.0, size=(1, 100, 3)).astype(np.float32)
+    out.append((build_edge_list(dense, np.ones((1, 100), bool), 10.0,
+                                100 * 99 + 124), 100, False))
+    return out
+
+
+class TestSegmentSearch:
+    @pytest.mark.parametrize("which", [0, 1])
+    def test_equals_lower_bound(self, which):
+        el, cap, serving = _layouts()[which]
+        n = el.receivers.shape[0] // el.edge_capacity * cap
+        ec = el.edge_capacity
+        for node in range(n):
+            start, end, rounds = segment_bounds_model(
+                el.receivers, el.edge_mask, node, cap, ec)
+            b = node // cap
+            lo, hi = b * ec, (b + 1) * ec
+            assert start == _lower_bound(el.receivers, el.edge_mask, lo, hi,
+                                         node)
+            assert end == _lower_bound(el.receivers, el.edge_mask, lo, hi,
+                                       node + 1)
+            assert (el.receivers[start:end] == node).all()
+            assert el.edge_mask[start:end].all()
+            if serving:
+                assert rounds <= 2            # 1,024 slots: two rounds
+            else:
+                assert end - start == 99       # > 64 real edges
+
+    def test_isolated_and_padded_atoms_are_empty(self):
+        el, cap, _ = _layouts()[0]
+        for node in (5, 20, 31, 64, 80, 95):          # isolated, padded
+            start, end, _ = segment_bounds_model(el.receivers, el.edge_mask,
+                                                 node, cap, 1024)
+            assert start == end
+
+
+def _degree_layout(degrees, ec, seed):
+    """One molecule whose node i receives degrees[i] real edges (senders
+    at random), then masked self-loops on node 0 up to ec slots."""
+    rng = np.random.default_rng(seed)
+    cap = len(degrees)
+    recv = np.repeat(np.arange(cap), degrees).astype(np.int32)
+    send = rng.integers(0, cap, size=recv.shape[0]).astype(np.int32)
+    pad = ec - recv.shape[0]
+    mask = np.r_[np.ones(recv.shape[0], bool), np.zeros(pad, bool)]
+    recv = np.r_[recv, np.zeros(pad, np.int32)]
+    send = np.r_[send, np.zeros(pad, np.int32)]
+    return (torch.from_numpy(send), torch.from_numpy(recv),
+            torch.from_numpy(mask), cap)
+
+
+class TestChunkedSoftmax:
+    @pytest.mark.parametrize("F,W", [(16, 28), (64, 112)])
+    def test_matches_the_plain_version(self, F, W):
+        """Receivers with 1, 31, 32, 33 and 100 real edges (one to four
+        chunks) and none."""
+        degrees = [1, 31, 32, 33, 100, 0, 5, 0]
+        send, recv, mask, cap = _degree_layout(degrees, 256, seed=F)
+        rng = np.random.default_rng(W)
+        q, k = (torch.from_numpy(rng.normal(size=(cap, F)).astype(np.float32))
+                for _ in range(2))
+        bias = torch.from_numpy(rng.normal(size=256).astype(np.float32))
+        vals = torch.from_numpy(rng.normal(size=(256, W)).astype(np.float32))
+        got = chunked_softmax_model(0.5 * q, k, bias, vals, send, recv, mask,
+                                    cap)
+        want = ref.edge_softmax_ref(0.5 * q, k, bias, send, recv, mask, vals,
+                                    cap)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+        assert (got[[5, 7]] == 0).all()

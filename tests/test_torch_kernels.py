@@ -39,7 +39,8 @@ from repro_torch.kernels.attention_int8kv import (decode_attention_int8kv,
                                                  n_splits)
 from repro_torch.kernels.edge_softmax import edge_softmax_fused
 from repro_torch.kernels.mddq_kernel import mddq_encode_kernel
-from repro_torch.kernels.quant_matmul import w4a8_matmul, w8a8_matmul
+from repro_torch.kernels.quant_matmul import (w4a8_matmul, w4a8_matmul_f32a,
+                                              w8a8_matmul, w8a8_matmul_f32a)
 from repro_torch.serving.bucketing import build_edge_list
 
 
@@ -95,16 +96,42 @@ class TestQuantMatmul:
         np.testing.assert_array_equal(_np(plain(ta, tas, tw, ts)), want)
         np.testing.assert_array_equal(out, want)
 
+    @pytest.mark.parametrize("m,k,n,w4", [(1, 3, 2, False), (1, 3, 2, True),
+                                          (255, 17, 66, False),
+                                          (255, 17, 66, True),
+                                          (256, 80, 1, False)])
+    def test_f32a_entries_match_oracle_bit_for_bit(self, m, k, n, w4):
+        """The f32-A entries (the A8 step inside the matmul launch) equal
+        the JAX package's quantize-then-multiply oracle bit for bit, an
+        all-zero row (the 1e-8 floor) included."""
+        rng = np.random.default_rng(m * k + n)
+        x = rng.normal(size=(m, k)).astype(np.float32) * 3
+        x[0] = 0.0
+        w = rng.normal(size=(k, n)).astype(np.float32)
+        prep_j, prep_t = ((jops.prepare_w4, ops.prepare_w4) if w4 else
+                          (jops.prepare_w8, ops.prepare_w8))
+        jw, js = prep_j(jnp.asarray(w))
+        tw, ts = prep_t(_t(w))
+        oracle = jref.w4a8_matmul_ref if w4 else jref.w8a8_matmul_ref
+        want = np.asarray(oracle(*jops.quantize_activations(jnp.asarray(x)),
+                                 jw, js))
+        entry = w4a8_matmul_f32a if w4 else w8a8_matmul_f32a
+        np.testing.assert_array_equal(_np(entry(_t(x), tw, ts)), want)
+
     def test_cpu_calls_do_not_count_as_launches(self):
-        before = (w8a8_matmul.launches, w4a8_matmul.launches,
-                  edge_softmax_fused.launches, mddq_encode_kernel.launches)
+        counters = (w8a8_matmul, w4a8_matmul, w8a8_matmul_f32a,
+                    w4a8_matmul_f32a, edge_softmax_fused, mddq_encode_kernel,
+                    act_quant)
+        before = [c.launches for c in counters]
         x = torch.randn(8, 16)
         ops.matmul_w8a8(x, *ops.prepare_w8(torch.randn(16, 4)))
         ops.matmul_w4a8(x, *ops.prepare_w4(torch.randn(16, 4)))
+        w8a8_matmul(*ops.quantize_activations(x),
+                    *ops.prepare_w8(torch.randn(16, 4)))
+        w4a8_matmul(*ops.quantize_activations(x),
+                    *ops.prepare_w4(torch.randn(16, 4)))
         mddq_encode_kernel(torch.randn(5, 3), make_codebook(4))
-        after = (w8a8_matmul.launches, w4a8_matmul.launches,
-                 edge_softmax_fused.launches, mddq_encode_kernel.launches)
-        assert after == before
+        assert [c.launches for c in counters] == before
 
 
 # --- MDDQ encode -------------------------------------------------------------
