@@ -38,15 +38,18 @@
    bf16 activations) through ``repro_torch.launch.serve``: batch 8, a
    1,024-token cache, 64 greedy tokens from random weights (numpy seed 0),
    with the launch counts set to 0 just before and read just after.
-   Checks finite logits, one act-quant and one decode-attention launch
-   per layer per step, the kernels against their plain versions over 8
+   Checks finite logits, one KV-write and one decode-attention launch
+   per layer per step (and no (M, K) act-quant launch), the kernels
+   against their plain versions over 8
    teacher-forced steps of the same decode (bf16, and again with float32
    activations), and the smoke config on the card against the CPU plain
    path. Prints ms/step, tok/s, the weight and
-   cache bytes and the device idle share of one step.
+   cache bytes and the device idle share and device events of one step.
 
-Phase 2 also holds the act-quant kernel bit for bit (float32 and bf16)
-and the int8-KV decode attention to 1e-5 against their plain versions,
+Phase 2 also holds the act-quant kernel bit for bit (float32 and bf16),
+its KV entry (the decode's whole int8 KV write) byte for byte over a
+stacked cache, and the int8-KV decode attention to 1e-5 against their
+plain versions,
 the latter timed at 2,048 of 2,048 tokens and at the decode's 64 of
 1,024, beside SDPA's event and device times in float32 and bf16.
 
@@ -74,6 +77,10 @@ FP32_OPS_PER_S = 67e12
 M_ROWS = 256                 # 8 molecules x 32-atom bucket
 LM_BATCH, LM_CACHE, LM_TOKENS = 8, 1024, 64
 LM_FORCED_STEPS = 8
+# device events of one profiled decode step at commit 867c120, before the
+# KV write became one launch per layer (this script there, on an NVIDIA
+# H100 80GB HBM3 at 700 W)
+LM_STEP_EVENTS_BEFORE = 2507
 # teacher-forced logits, kernels against plain versions, over the largest
 # |logit|: the act-quant kernel is bit for bit, the attention kernel sums
 # in another order (~1e-7), and the bf16 cast of its output turns such a
@@ -132,8 +139,12 @@ def _device_rows(torch, prof):
 
 def device_profile(torch, fn, reps: int = 20):
     """(device ms per call, device kernels per call) of what ``fn``
-    launches, from torch.profiler; (None, 0) when three profiles in a row
-    record no device time (seen once on the card, for one kernel)."""
+    launches, from torch.profiler. Every call launches the same kernels,
+    so a profile whose device events are not a whole number per call lost
+    some (seen once on the card: 2 events for 20 calls of one kernel) and
+    is taken again, as is one with no device time (also seen once); after
+    three such profiles the last one's numbers are returned, or (None, 0)
+    when it recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -145,9 +156,12 @@ def device_profile(torch, fn, reps: int = 20):
             torch.cuda.synchronize()
         rows = _device_rows(torch, prof)
         total = sum(r[0] for r in rows)
-        if total > 0:
-            return total / reps, sum(r[1] for r in rows) / reps
-    return None, 0
+        events = sum(r[1] for r in rows)
+        if total > 0 and events % reps == 0:
+            break
+    if total == 0:
+        return None, 0
+    return total / reps, events / reps
 
 
 def device_ms(torch, fn, reps: int = 20):
@@ -200,9 +214,10 @@ def kernel_resources(log: str):
 
 
 def _demangle(sym: str) -> str:
-    """``decode_kernel<64,8>`` from an Itanium-mangled kernel name in an
-    anonymous namespace (``_ZN<n>_GLOBAL__N_...<n>name[I...E]...``); the
-    symbol itself when it does not parse."""
+    """``decode_kernel<64,8>`` or ``kv_append_kernel<float,64>`` from an
+    Itanium-mangled kernel name in an anonymous namespace
+    (``_ZN<n>_GLOBAL__N_...<n>name[I...E]...``); the symbol itself when it
+    does not parse."""
     import re
     pos, parts = 3, []
     while sym.startswith("_ZN") and len(parts) < 2:
@@ -214,12 +229,28 @@ def _demangle(sym: str) -> str:
         pos += m.end() + n
     if len(parts) < 2 or "_GLOBAL__N" not in parts[0]:
         return sym
-    args = re.match(r"I((?:Li-?\d+E|Lb[01]E|\w+?)+?)EE", sym[pos:])
-    if args:
-        vals = re.findall(r"L[ib](-?\d+)E", args.group(1))
-        plain = re.sub(r"^\d+", "", args.group(1))
-        return f"{parts[1]}<{','.join(vals) or plain}>"
-    return parts[1]
+    if not sym.startswith("I", pos):
+        return parts[1]
+    # template arguments: literals (Li64E, Lb1E), builtin types (f),
+    # named types (13__nv_bfloat16)
+    args, pos = [], pos + 1
+    builtin = {"f": "float", "i": "int", "b": "bool"}
+    while pos < len(sym) and sym[pos] != "E":
+        lit = re.match(r"L[a-z](-?\d+)E", sym[pos:])
+        named = re.match(r"\d+", sym[pos:])
+        if lit:
+            args.append(lit.group(1))
+            pos += lit.end()
+        elif named:
+            n = int(named.group(0))
+            args.append(sym[pos + named.end():pos + named.end() + n])
+            pos += named.end() + n
+        elif sym[pos] in builtin:
+            args.append(builtin[sym[pos]])
+            pos += 1
+        else:
+            return parts[1]
+    return f"{parts[1]}<{','.join(args)}>"
 
 
 # --- phase 2: kernels against their plain versions ---------------------------
@@ -568,6 +599,99 @@ def check_act_quant(torch, dev, gen):
                               if key != (M_ROWS, 64, "float32")]}]
 
 
+def _kv_cache(torch, dev, B, H, S, hd):
+    """A 3-layer stacked int8 cache of -128 (never a code) with NaN
+    scales: a write outside its slot shows in the bytes."""
+    q = torch.full((2, 3, B, H, S, hd), -128, dtype=torch.int8, device=dev)
+    s = torch.full((2, 3, B, H, S), float("nan"), device=dev)
+    return q, s
+
+
+def check_kv_append(torch, dev, gen):
+    """K5's KV entry (the LM decode's whole int8 KV write, one launch per
+    layer) byte for byte against its plain version over a stacked cache
+    filled with sentinel codes and NaN scales, on layer 1's views: K and V
+    strided views of one projection, an all-zero row, slots 0 and S-1, in
+    bf16 and float32, at the decode's shape (B=8, 2 kv heads, hd 64, a
+    1,024-token cache), llama3.2-3b's 8 heads of 128, the smoke configs'
+    hd 8 and replicate=3. Each timed, with one device kernel per call
+    required, beside the write it replaced (act-quant of the stacked rows
+    and four slice copies)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.act_quant import kv_append_int8
+    from repro_torch.kernels.ref import kv_append_int8_ref
+
+    def write(fn, x, q, s, cur, rep):
+        fn(x[:, 0], x[:, 1], q[0, 1], s[0, 1], q[1, 1], s[1, 1], cur, rep)
+
+    def stacked(x, q, s, cur):
+        kq, ks, vq, vs = ops.prepare_kv_int8(x[:, 0], x[:, 1])
+        q[0, 1][:, :, cur] = kq
+        q[1, 1][:, :, cur] = vq
+        s[0, 1][:, :, cur] = ks
+        s[1, 1][:, :, cur] = vs
+
+    shapes = [(LM_BATCH, 2, 64, 1, LM_CACHE), (LM_BATCH, 8, 128, 1, 256),
+              (3, 1, 8, 1, 16), (LM_BATCH, 2, 64, 3, 64)]
+    timed = {}
+    for B, nkv, hd, rep, S in shapes:
+        for dt in (torch.bfloat16, torch.float32):
+            x = (torch.randn(B, 2, nkv, hd, generator=gen, device=dev)
+                 * torch.exp(torch.randn(B, 2, nkv, 1, generator=gen,
+                                         device=dev))).to(dt)
+            x[0, 0, 0] = 0.0
+            H, name = nkv * rep, str(dt).replace("torch.", "")
+            shape = f"B={B} nkv={nkv} hd={hd} replicate={rep} S={S} {name}"
+            for cur in (0, S - 1):
+                got = _kv_cache(torch, dev, B, H, S, hd)
+                want = [t.clone() for t in got]
+                write(kv_append_int8, x, *got, cur, rep)
+                write(kv_append_int8_ref, x, *want, cur, rep)
+                torch.cuda.synchronize()
+                same = (torch.equal(got[0], want[0]) and torch.equal(
+                    got[1].view(torch.int32), want[1].view(torch.int32)))
+                written = bool((got[0][:, 1, :, :, cur] != -128).all())
+                print(f"  kv_append_int8 {shape} cur={cur}: whole cache "
+                      f"bit-identical={same}, slot written={written}")
+                require(same and written, f"kv_append_int8 {shape} "
+                        f"cur={cur} differs from its plain version")
+            q, s = _kv_cache(torch, dev, B, H, S, hd)
+            cur = min(LM_TOKENS, S - 1)
+            fn = lambda: write(kv_append_int8, x, q, s, cur, rep)  # noqa
+            dev_ms, per_call = device_profile(torch, fn)
+            require(dev_ms is None or per_call == 1,
+                    f"kv_append_int8 ran {per_call} kernels per call")
+            n_bytes = 2 * B * nkv * hd * x.element_size() + 2 * B * H * (hd
+                                                                        + 4)
+            b_ms, b_by = bound(n_bytes, 3 * 2 * B * H * hd, FP32_OPS_PER_S)
+            rec = {"shape": shape, "ms": time_ms(torch, fn),
+                   "device_ms": dev_ms, "device_kernels_per_call": per_call,
+                   "plain_ms": time_ms(torch, lambda: write(
+                       kv_append_int8_ref, x, q, s, cur, rep)),
+                   "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0}
+            if rep == 1:
+                old = lambda: stacked(x, q, s, cur)             # noqa: E731
+                old_dev, old_per = device_profile(torch, old)
+                rec.update(stacked_write_ms=time_ms(torch, old),
+                           stacked_write_device_ms=old_dev,
+                           stacked_write_device_kernels_per_call=old_per)
+                print(f"  the write it replaced ({shape}): act-quant of "
+                      f"the stacked rows + four slice copies, "
+                      f"{rec['stacked_write_ms']:.5f} ms per call (CUDA "
+                      f"events), device {old_dev} ms over {old_per} device "
+                      f"kernels per call")
+            timed[shape] = rec
+    main_shape = f"B={LM_BATCH} nkv=2 hd=64 replicate=1 S={LM_CACHE} bfloat16"
+    row = timed.pop(main_shape)
+    return [dict(row, name="kv_append_int8", route="cuda",
+                 source="src/repro_torch/kernels/csrc/act_quant.cu",
+                 replaces="src/repro/kernels/act_quant.py:28",
+                 fuses="the JAX decode's KV quantization and its four "
+                       "dynamic_update_index_in_dim "
+                       "(src/repro/models/lm/attention.py:136-156)",
+                 library_ms=None, other_shapes=list(timed.values()))]
+
+
 def check_decode_attention(torch, dev, gen):
     """K6 within 1e-5 of its plain version at the LM decode's grouping
     (batch 8 x 2 kv heads, 7 query heads each, hd 64): over a 2,048-token
@@ -643,7 +767,7 @@ def check_decode_attention(torch, dev, gen):
 # --- phase 3: the engine -----------------------------------------------------
 
 def kernel_counters():
-    from repro_torch.kernels.act_quant import act_quant
+    from repro_torch.kernels.act_quant import act_quant, kv_append_int8
     from repro_torch.kernels.attention_int8kv import decode_attention_int8kv
     from repro_torch.kernels.edge_softmax import edge_softmax_fused
     from repro_torch.kernels.mddq_kernel import mddq_encode_kernel
@@ -653,14 +777,15 @@ def kernel_counters():
                                                   w8a8_matmul_f32a)
     return [w8a8_matmul, w4a8_matmul, w8a8_matmul_f32a, w4a8_matmul_f32a,
             edge_softmax_fused, mddq_encode_kernel, act_quant,
-            decode_attention_int8kv]
+            kv_append_int8, decode_attention_int8kv]
 
 
 # the SO3 path quantizes activations inside the matmul kernel: the int8-A
-# entries and the act-quant kernel are not on it
+# entries and the act-quant kernel are not on it; the LM decode writes its
+# KV cache through the act-quant kernel's KV entry, not its (M, K) entry
 SO3_KERNELS = ("w8a8_matmul_f32a", "w4a8_matmul_f32a", "edge_softmax_fused",
                "mddq_encode_kernel")
-LM_KERNELS = ("act_quant", "decode_attention_int8kv")
+LM_KERNELS = ("kv_append_int8", "decode_attention_int8kv")
 
 
 def counted_run(fn):
@@ -867,7 +992,7 @@ def run_engine(torch, dev, cfg, graphs):
                 f"{p}: {fused} f32-A matmul launches for "
                 f"{n['quantized_products']} quantized products")
         for name in ("act_quant", "w8a8_matmul", "w4a8_matmul",
-                     "decode_attention_int8kv"):
+                     "kv_append_int8", "decode_attention_int8kv"):
             require(n[name] == 0, f"{p}: {name} ran on the SO3 path")
 
     for p, res in results.items():
@@ -953,9 +1078,9 @@ def run_engine(torch, dev, cfg, graphs):
 def _plain_kv_ops():
     """The int8-KV decode's two kernels as their plain versions, to run
     the same decode without the kernels on the same card."""
-    from repro_torch.kernels.ref import (act_quant_ref,
-                                         decode_attention_int8kv_ref)
-    return {"act_quant": act_quant_ref,
+    from repro_torch.kernels.ref import (decode_attention_int8kv_ref,
+                                         kv_append_int8_ref)
+    return {"append_kv_int8": kv_append_int8_ref,
             "decode_attention_int8kv": decode_attention_int8kv_ref}
 
 
@@ -965,8 +1090,7 @@ def forced_logits(torch, lm, tokens, plain: bool):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models.lm.transformer import init_cache
-    saved = {k: getattr(ops, k) for k in ("act_quant",
-                                          "decode_attention_int8kv")}
+    saved = {k: getattr(ops, k) for k in _plain_kv_ops()}
     if plain:
         for k, fn in _plain_kv_ops().items():
             setattr(ops, k, fn)
@@ -1006,10 +1130,11 @@ def profile_step(torch, lm, cache, index: int, reps: int = 7):
         print("  profiler: no device time recorded (idle share not "
               "measured)")
         return
+    events = sum(r[1] for r in rows)
     print(f"  profiled decode step at position {index}: device busy "
-          f"{busy_ms:.3f} ms over {sum(r[1] for r in rows)} device events; "
-          f"unprofiled step {step_ms:.3f} ms (median of {reps}) -> idle "
-          f"share {1 - busy_ms / step_ms:.3f}")
+          f"{busy_ms:.3f} ms over {events} device events (867c120: "
+          f"{LM_STEP_EVENTS_BEFORE}); unprofiled step {step_ms:.3f} ms "
+          f"(median of {reps}) -> idle share {1 - busy_ms / step_ms:.3f}")
     for t_ms, count, key in rows[:10]:
         print(f"    {t_ms:9.4f} ms  x{count:<4d} {key[:90]}")
 
@@ -1132,6 +1257,7 @@ def main() -> int:
     rows += check_edge_softmax(torch, dev, gen, graphs, cfg)
     rows += check_mddq_encode(torch, dev, gen, cfg)
     rows += check_act_quant(torch, dev, gen)
+    rows += check_kv_append(torch, dev, gen)
     rows += check_decode_attention(torch, dev, gen)
     for r in rows:
         for t in [r] + r.get("other_shapes", []):

@@ -56,6 +56,10 @@ _SIGNATURES = {
                                _F, _F, _F, _F, _I, _P),
     "repro_act_quant_f32": (_P, _P, _P, _I, _I, _I, _P),
     "repro_act_quant_bf16": (_P, _P, _P, _I, _I, _I, _P),
+    "repro_kv_append_int8_f32": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _P),
+    "repro_kv_append_int8_bf16": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_decode_attention_int8kv": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                       _F, _I, _P),

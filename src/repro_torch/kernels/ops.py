@@ -6,7 +6,8 @@ plain version on CPU tensors) and, where forces must differentiate
 through it, carries the straight-through or reference backward as a
 ``torch.autograd.Function``. The quantized matmuls take float32
 activations and quantize them inside the matmul kernel (one launch per
-product); the act-quant kernel serves the LM decode's KV write.
+product); the LM decode's int8 KV write is one launch of the act-quant
+kernel's KV entry per layer (:func:`append_kv_int8`).
 The TPU wrappers' padding to 128-multiples (of the matmul operands and
 of the MDDQ codebook) is not copied: the CUDA kernels mask ragged shapes
 themselves.
@@ -20,7 +21,7 @@ from repro_torch.core.quantizers import (abs_max_scale,
                                          dequantize_log_magnitude, pack_int4,
                                          quantize)
 from repro_torch.kernels import attention_int8kv as _attn
-from repro_torch.kernels.act_quant import act_quant
+from repro_torch.kernels.act_quant import act_quant, kv_append_int8
 from repro_torch.kernels.edge_softmax import edge_softmax_fused
 from repro_torch.kernels.mddq_kernel import mddq_encode_kernel
 from repro_torch.kernels.quant_matmul import (w4a8_matmul_f32a,
@@ -30,7 +31,7 @@ from repro_torch.kernels.ref import edge_softmax_ref
 __all__ = ["prepare_w8", "prepare_w4", "quantize_activations",
            "matmul_w8a8", "matmul_w4a8", "mddq_encode",
            "mddq_qdq_kernel", "edge_gather", "edge_softmax",
-           "prepare_kv_int8", "decode_attention_int8kv"]
+           "prepare_kv_int8", "append_kv_int8", "decode_attention_int8kv"]
 
 
 # --- weight preparation (offline) -------------------------------------------
@@ -179,11 +180,21 @@ def prepare_kv_int8(k: torch.Tensor, v: torch.Tensor):
     """(..., D) float32 or bfloat16 K and V -> (k_q int8 (..., D), k_s f32
     (...), v_q, v_s): per-token abs-max int8 codes and scales, the scale
     taken in the input's dtype (``repro/kernels/ops.py``'s formula, and the
-    JAX LM decode's KV write). Both go through one act-quant launch."""
+    JAX LM decode's KV write). Both go through one act-quant launch; it
+    builds whole caches (tests, phase 2), not the decode's write."""
     lead, d = k.shape[:-1], k.shape[-1]
     q, s = act_quant(torch.stack((k, v)).reshape(-1, d))
     q, s = q.reshape(2, *lead, d), s.reshape(2, *lead)
     return q[0], s[0], q[1], s[1]
+
+
+def append_kv_int8(k_new, v_new, k_q, k_s, v_q, v_s, cur_index: int,
+                   replicate: int = 1) -> None:
+    """The LM decode's int8 KV write, in place: the new token's K and V
+    rows (B, nkv, D) quantized per row as :func:`prepare_kv_int8` does and
+    stored at ``cur_index`` of the (B, nkv * replicate, S, ...) cache, one
+    kernel launch (``act_quant.kv_append_int8``)."""
+    kv_append_int8(k_new, v_new, k_q, k_s, v_q, v_s, cur_index, replicate)
 
 
 def decode_attention_int8kv(q, k_q, k_scale, v_q, v_scale, n_valid: int,

@@ -15,7 +15,7 @@ from repro_torch.core.quantizers import (quantize_log_magnitude,
 
 __all__ = ["w8a8_matmul_ref", "w4a8_matmul_ref", "nearest_code_ref",
            "mddq_encode_ref", "edge_softmax_ref", "act_quant_ref",
-           "decode_attention_int8kv_ref", "NEG_BIAS"]
+           "kv_append_int8_ref", "decode_attention_int8kv_ref", "NEG_BIAS"]
 
 NEG_BIAS = -1e9   # masked-edge logit; matches the dense forward's pair mask
 _NEAREST_CHUNK = 4096
@@ -136,6 +136,29 @@ def act_quant_ref(x: torch.Tensor):
         .to(torch.float32)
     q = torch.clamp(torch.round(x.to(torch.float32) / scale), -127, 127)
     return q.to(torch.int8), scale
+
+
+def kv_append_int8_ref(k_new, v_new, k_q, k_s, v_q, v_s, cur_index: int,
+                       replicate: int = 1) -> None:
+    """The LM decode's int8 KV write, in place.
+
+    k_new/v_new: (B, nkv, D) float32 or bfloat16, the new token's rows;
+    k_q/v_q: (B, nkv * replicate, S, D) int8 and k_s/v_s: (B, nkv *
+    replicate, S) f32, the cache. Each effective head h takes the row of
+    kv head ``h // replicate`` (``repeat_interleave``), quantized by
+    :func:`act_quant_ref`; its codes go to ``q[:, h, cur_index]`` and its
+    scale to ``s[:, h, cur_index]``, and nothing else in the cache changes.
+    """
+    if replicate > 1:
+        k_new = torch.repeat_interleave(k_new, replicate, dim=1)
+        v_new = torch.repeat_interleave(v_new, replicate, dim=1)
+    lead, d = k_new.shape[:-1], k_new.shape[-1]
+    q, s = act_quant_ref(torch.stack((k_new, v_new)).reshape(-1, d))
+    q, s = q.reshape(2, *lead, d), s.reshape(2, *lead)
+    k_q[:, :, cur_index] = q[0]
+    v_q[:, :, cur_index] = q[1]
+    k_s[:, :, cur_index] = s[0]
+    v_s[:, :, cur_index] = s[1]
 
 
 # --- int8-KV decode attention -------------------------------------------------

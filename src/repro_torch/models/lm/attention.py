@@ -2,9 +2,11 @@
 
 Counterpart of the decode half of ``repro/models/lm/attention.py``
 (``init_kv_cache``, ``_project_qkv``, ``decode_attention``). With
-``cfg.kv_quant`` the new token's K and V rows are quantized by the
-act-quant kernel (K5, per-token abs-max, the scale taken in the
-activation dtype as the JAX decode takes it), and the attention over the
+``cfg.kv_quant`` the new token's K and V rows are quantized and written
+into the cache by one launch of the act-quant kernel's KV entry (K5,
+per-token abs-max, the scale taken in the activation dtype as the JAX
+decode takes it; replicated heads read their kv head by index), and the
+attention over the
 int8 cache runs in the int8-KV decode kernel (K6), which dequantizes and
 computes the softmax in float32 (as the TPU kernel does; the JAX jnp
 path dequantizes and takes the logits in the activation dtype, so in
@@ -103,20 +105,14 @@ def decode_attention(params, x: torch.Tensor, cfg, cache: Cache,
     q, k_new, v_new, scale = _project_qkv(params, x, cfg, positions)
     k_new = k_new[:, 0]                              # (B, kv, hd)
     v_new = v_new[:, 0]
-    if cfg.kv_replicate > 1:
-        # contiguous repeat keeps the q-group -> kv-head mapping
-        k_new = torch.repeat_interleave(k_new, cfg.kv_replicate, dim=1)
-        v_new = torch.repeat_interleave(v_new, cfg.kv_replicate, dim=1)
-        nkv = nkv * cfg.kv_replicate
+    nkv = nkv * cfg.kv_replicate
     g = nh // nkv
     q = q[:, 0].reshape(B, nkv, g, hd)               # (B, kv_eff, g, hd)
 
     if cfg.kv_quant:
-        k_q, k_s, v_q, v_s = ops.prepare_kv_int8(k_new, v_new)
-        cache["k_q"][:, :, cur_index] = k_q
-        cache["v_q"][:, :, cur_index] = v_q
-        cache["k_s"][:, :, cur_index] = k_s
-        cache["v_s"][:, :, cur_index] = v_s
+        ops.append_kv_int8(k_new, v_new, cache["k_q"], cache["k_s"],
+                           cache["v_q"], cache["v_s"], cur_index,
+                           cfg.kv_replicate)
         rows = B * nkv
         out = ops.decode_attention_int8kv(
             q.to(torch.float32).reshape(rows, g, hd),
@@ -127,6 +123,10 @@ def decode_attention(params, x: torch.Tensor, cfg, cache: Cache,
             cur_index + 1, scale)
         out = out.to(x.dtype).reshape(B, 1, nh * hd)
     else:
+        if cfg.kv_replicate > 1:
+            # contiguous repeat keeps the q-group -> kv-head mapping
+            k_new = torch.repeat_interleave(k_new, cfg.kv_replicate, dim=1)
+            v_new = torch.repeat_interleave(v_new, cfg.kv_replicate, dim=1)
         cache["k"][:, :, cur_index] = k_new.to(cache["k"].dtype)
         cache["v"][:, :, cur_index] = v_new.to(cache["v"].dtype)
         k, v = cache["k"], cache["v"]

@@ -6,8 +6,9 @@ has no CPU mode). On the card, with no JAX installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: the quantized matmuls (int8-A and f32-A entries), the MDDQ
-encode codes and the
-activation quantizer (float32 and bfloat16) exactly (the kernels repeat
+encode codes, the
+activation quantizer (float32 and bfloat16) and the int8 KV write (the
+whole cache, byte for byte) exactly (the kernels repeat
 their plain versions' arithmetic in the same order); the edge softmax and
 the int8-KV decode attention to 1e-5 (their sums run in another order).
 The LM decode on the card against the CPU plain path to 1e-4 of the
@@ -20,7 +21,7 @@ import torch
 
 from repro_torch.core.codebook import make_codebook
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.act_quant import act_quant
+from repro_torch.kernels.act_quant import act_quant, kv_append_int8
 from repro_torch.kernels.attention_int8kv import decode_attention_int8kv
 from repro_torch.kernels.edge_softmax import edge_softmax_fused
 from repro_torch.kernels.mddq_kernel import mddq_encode_kernel, probe_vectors
@@ -258,13 +259,13 @@ def test_engine_on_card_matches_cpu_plain_path(cuda):
     counters = (w8a8_matmul_f32a, w4a8_matmul_f32a, edge_softmax_fused,
                 mddq_encode_kernel)
     before = [c.launches for c in counters]
-    quiet = [c.launches for c in (act_quant, w8a8_matmul, w4a8_matmul)]
+    others = (act_quant, kv_append_int8, w8a8_matmul, w4a8_matmul)
+    quiet = [c.launches for c in others]
     card = QuantizedEngine.from_config(cfg, serve=serve,
                                        device=cuda).infer_batch(graphs)
     assert all(c.launches > b for c, b in zip(counters, before))
     # the A8 step runs inside the matmul launches
-    assert [c.launches for c in (act_quant, w8a8_matmul, w4a8_matmul)] \
-        == quiet
+    assert [c.launches for c in others] == quiet
     cpu = QuantizedEngine.from_config(cfg, serve=serve,
                                       device="cpu").infer_batch(graphs)
     f_scale = max(float(np.abs(r.forces).max()) for r in cpu)
@@ -297,6 +298,80 @@ def test_act_quant_rejects_bad_arguments(cuda):
         act_quant(torch.zeros(4, 8, dtype=torch.float16, device=cuda))
     with pytest.raises(ValueError):
         act_quant(torch.zeros(8, 4, device=cuda).T)
+
+
+def _kv_stacked_cache(cuda, B, H, S, hd):
+    """A 3-layer int8 cache of -128 (never a code) with NaN scales: a
+    write outside its slot shows in the bytes."""
+    q = torch.full((2, 3, B, H, S, hd), -128, dtype=torch.int8, device=cuda)
+    s = torch.full((2, 3, B, H, S), float("nan"), device=cuda)
+    return q, s
+
+
+def _kv_write(fn, x, q, s, cur, rep):
+    """``fn`` on layer 1's views; K and V are strided views of x."""
+    fn(x[:, 0], x[:, 1], q[0, 1], s[0, 1], q[1, 1], s[1, 1], cur, rep)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,nkv,hd,rep,S", [
+    (8, 2, 64, 1, 1024),       # qwen2-0.5b's decode
+    (2, 8, 128, 1, 64),        # llama3.2-3b's heads
+    (3, 1, 8, 1, 16),          # qwen2's smoke config
+    (2, 2, 64, 3, 32), (2, 2, 8, 3, 16), (2, 2, 128, 3, 16)])
+def test_kv_append_int8_bit_for_bit(cuda, dtype, B, nkv, hd, rep, S):
+    """The whole stacked cache, byte for byte, against the plain version
+    on the card and on the CPU, at the first and last slot, with an
+    all-zero row; one launch per call."""
+    g = torch.Generator(device=cuda).manual_seed(B * hd + rep)
+    x = (torch.randn(B, 2, nkv, hd, generator=g, device=cuda)
+         * torch.exp(torch.randn(B, 2, nkv, 1, generator=g, device=cuda))
+         ).to(dtype)
+    x[0, 0, 0] = 0.0                             # the 1e-8 floor
+    for cur in (0, S - 1):
+        got = _kv_stacked_cache(cuda, B, nkv * rep, S, hd)
+        want = [t.clone() for t in got]
+        before = kv_append_int8.launches
+        _kv_write(kv_append_int8, x, *got, cur, rep)
+        assert kv_append_int8.launches == before + 1
+        _kv_write(ref.kv_append_int8_ref, x, *want, cur, rep)
+        on_cpu = [t.cpu() for t in _kv_stacked_cache(cuda, B, nkv * rep, S,
+                                                     hd)]
+        _kv_write(ref.kv_append_int8_ref, x.cpu(), *on_cpu, cur, rep)
+        for w in (want, [t.to(cuda) for t in on_cpu]):
+            assert torch.equal(got[0], w[0])
+            assert torch.equal(got[1].view(torch.int32),
+                               w[1].view(torch.int32))
+        assert (got[0][:, 1, :, :, cur] != -128).all()
+        assert not got[1][:, 1, :, :, cur].isnan().any()
+
+
+def test_kv_append_int8_rejects_bad_arguments(cuda):
+    B, nkv, hd, S = 2, 2, 64, 8
+    q, s = _kv_stacked_cache(cuda, B, nkv, S, hd)
+    kv = (q[0, 0], s[0, 0], q[1, 0], s[1, 0])
+    x = torch.randn(B, 2, nkv, hd, device=cuda)
+    before = kv_append_int8.launches
+    with pytest.raises(TypeError):
+        h = x.to(torch.float16)
+        kv_append_int8(h[:, 0], h[:, 1], *kv, 0)
+    with pytest.raises(ValueError, match="head_dim"):
+        q32, s32 = _kv_stacked_cache(cuda, B, nkv, S, 32)
+        x32 = torch.randn(B, 2, nkv, 32, device=cuda)
+        kv_append_int8(x32[:, 0], x32[:, 1], q32[0, 0], s32[0, 0],
+                       q32[1, 0], s32[1, 0], 0)
+    with pytest.raises(ValueError, match="last dim"):
+        wide = torch.randn(B, 2, nkv, 2 * hd, device=cuda)[..., ::2]
+        kv_append_int8(wide[:, 0], wide[:, 1], *kv, 0)
+    with pytest.raises(ValueError, match="aligned"):
+        odd = torch.randn(B * 2 * nkv * hd + 1, device=cuda)[1:] \
+            .view(B, 2, nkv, hd)
+        kv_append_int8(odd[:, 0], odd[:, 1], *kv, 0)
+    for bad in (S, -1):
+        with pytest.raises(ValueError, match="cur_index"):
+            kv_append_int8(x[:, 0], x[:, 1], *kv, bad)
+    assert kv_append_int8.launches == before
+    assert (q == -128).all() and s.isnan().all()
 
 
 @pytest.mark.parametrize("n_valid", [1, 31, 32, 33, 37, 64, 65, 1000, 2048])
@@ -372,8 +447,9 @@ def test_decode_attention_int8kv_wide_heads(cuda):
 
 def test_lm_decode_on_card_matches_cpu_plain_path(cuda):
     """qwen2's smoke config (float32, int8 KV, W8 weights): the same
-    weights decode the same tokens on the card (K5 and K6 launched on
-    every layer) and on the CPU (plain versions)."""
+    weights decode the same tokens on the card (K5's KV write and K6
+    launched on every layer, the (M, K) act-quant entry never) and on the
+    CPU (plain versions)."""
     cfg = serve.lm_config("qwen2-0.5b", smoke=True, quant="serve_w8a8",
                           kv_quant=True)
     lm = {dev: serve.build_lm(cfg, seed=0, device=dev)
@@ -381,15 +457,17 @@ def test_lm_decode_on_card_matches_cpu_plain_path(cuda):
     caches = {dev: init_cache(cfg, 3, 16, dev) for dev in lm}
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, size=(8, 3, 1)))
-    before = (act_quant.launches, decode_attention_int8kv.launches)
+    before = (kv_append_int8.launches, decode_attention_int8kv.launches,
+              act_quant.launches)
     for i in range(8):
         out = {dev: serve.decode(lm[dev], caches[dev], toks[i].to(
             lm[dev].device), i).cpu() for dev in lm}
         torch.testing.assert_close(
             out[cuda], out["cpu"], rtol=0,
             atol=1e-4 * float(out["cpu"].abs().max()))
-    assert act_quant.launches - before[0] == 8 * cfg.n_layers
+    assert kv_append_int8.launches - before[0] == 8 * cfg.n_layers
     assert decode_attention_int8kv.launches - before[1] == 8 * cfg.n_layers
+    assert act_quant.launches == before[2]
     # the K/V rows come out of matmuls summed in other orders, so a code
     # at a rounding boundary may move by one
     diff = (caches[cuda]["blocks"]["k_q"].cpu().int()

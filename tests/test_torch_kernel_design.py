@@ -1,6 +1,6 @@
 """What the quantized matmul (K1/K2), the edge softmax (K3), the MDDQ
-encode (K4) and the int8-KV decode attention (K6) kernels decide, held on
-the CPU.
+encode (K4), the int8 KV write (K5's KV entry) and the int8-KV decode
+attention (K6) kernels decide, held on the CPU.
 
 The CUDA kernels cannot run here (``tests/test_torch_cuda.py`` holds them
 to their plain versions on a card). What their host side and algorithms
@@ -13,7 +13,9 @@ rescan of the z-band) must give the full search's codes exactly, and
 K6's split arithmetic must cover every valid token once, with the
 kernel's decomposition (per-warp online softmax, warps merged in order,
 splits combined in order) within 1e-5 of the plain version, K6's gate on
-the card.
+the card. The KV write's warp/lane map must store every element and
+scale of the slot exactly once from the right kv head's row, and the
+codes it gives must equal the plain version's bit for bit.
 """
 import math
 
@@ -23,9 +25,11 @@ import torch
 
 from repro_torch.core.codebook import fibonacci_sphere, is_z_sorted, \
     make_codebook
-from repro_torch.core.quantizers import unpack_int4
+from repro_torch.core.quantizers import scale_from_amax, unpack_int4
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import quant_matmul as qmm
+from repro_torch.kernels.act_quant import (KV_HEAD_DIMS, elems_per_lane,
+                                           kv_append_lane_map)
 from repro_torch.kernels.attention_int8kv import (n_splits, split_plan,
                                                   warp_token_ranges)
 from repro_torch.kernels.edge_softmax import (chunked_softmax_model,
@@ -375,3 +379,84 @@ class TestChunkedSoftmax:
                                     cap)
         torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
         assert (got[[5, 7]] == 0).all()
+
+
+# --- K5's KV entry: the warp/lane map of the int8 KV write ----------------------
+
+def _kv_model(k_new, v_new, cache, cur, replicate):
+    """The KV write as the lane map runs it: each warp gathers its lanes'
+    elements of its kv head's row, takes the max of the lanes' maxima,
+    the row's scale, and each lane's codes from its own elements."""
+    B, nkv, hd = k_new.shape
+    epl = elems_per_lane(hd)
+    m = kv_append_lane_map(B, nkv, hd, replicate)
+    for blk in range(m["b"].shape[0]):
+        for w in range(2):
+            lanes = slice(32 * w, 32 * w + 32)
+            t, b, h, src = (int(m[k][blk, 32 * w])
+                            for k in ("tensor", "b", "h", "src"))
+            row = (v_new if t else k_new)[b, src]
+            firsts = [int(f) for f in m["first"][blk, lanes] if f >= 0]
+            held = [row[f:f + epl] for f in firsts]
+            amax = torch.stack([x.abs().amax() for x in held]).amax()
+            scale = scale_from_amax(amax, 8).to(torch.float32)
+            q, s = cache[2 * t], cache[2 * t + 1]
+            for f, x in zip(firsts, held):
+                q[b, h, cur, f:f + epl] = torch.clamp(torch.round(
+                    x.to(torch.float32) / scale), -127, 127).to(torch.int8)
+            assert m["scale"][blk, lanes].sum() == 1
+            s[b, h, cur] = scale
+
+
+class TestKVAppendLaneMap:
+    @pytest.mark.parametrize("replicate", [1, 3])
+    @pytest.mark.parametrize("hd", KV_HEAD_DIMS)
+    def test_every_slot_element_stored_once(self, hd, replicate):
+        """Every (K|V, b, h, element) of the slot is stored by exactly one
+        lane and every scale by exactly one lane 0, each lane's elements
+        are its vector's (aligned to ``elems_per_lane``), and head h reads
+        kv head h // replicate; at hd 8 four lanes of each warp work."""
+        B, nkv = 3, 2
+        H, epl = nkv * replicate, elems_per_lane(hd)
+        m = kv_append_lane_map(B, nkv, hd, replicate)
+        assert m["b"].shape == (B * H, 64)
+        np.testing.assert_array_equal(m["src"], m["h"] // replicate)
+        active = m["first"] >= 0
+        assert (m["first"][active] % epl == 0).all()
+        assert (active.reshape(-1, 32).sum(1) == hd // epl).all()
+        hits = np.zeros((2, B, H, hd), int)
+        for t, b, h, f in zip(m["tensor"][active], m["b"][active],
+                              m["h"][active], m["first"][active]):
+            hits[t, b, h, f:f + epl] += 1
+        assert (hits == 1).all()
+        scales = np.zeros((2, B, H), int)
+        np.add.at(scales, (m["tensor"][m["scale"]], m["b"][m["scale"]],
+                           m["h"][m["scale"]]), 1)
+        assert (scales == 1).all()
+        # a warp is one row: the same tensor, batch row and head throughout
+        for k in ("tensor", "b", "h"):
+            warps = m[k].reshape(-1, 32)
+            assert (warps == warps[:, :1]).all()
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("hd,replicate", [(8, 3), (64, 1), (128, 3)])
+    def test_model_equals_the_plain_version(self, hd, replicate, dtype):
+        """The lane map's arithmetic, on a cache with nonzero bytes
+        around the slot, equals ``kv_append_int8_ref`` bit for bit (an
+        all-zero row takes the 1e-8 floor)."""
+        rng = np.random.default_rng(hd + replicate)
+        B, nkv, S, cur = 2, 2, 3, 1
+        H = nkv * replicate
+        x = torch.from_numpy((rng.normal(size=(B, 2, nkv, hd)) * np.exp(
+            rng.normal(size=(B, 2, nkv, 1)))).astype(np.float32)).to(dtype)
+        x[1, 1, 0] = 0.0
+        fill = [torch.from_numpy(rng.integers(-127, 128, size=(B, H, S, hd))
+                                 .astype(np.int8)),
+                torch.from_numpy(rng.uniform(size=(B, H, S))
+                                 .astype(np.float32))]
+        got = [t.clone() for t in fill + fill]
+        want = [t.clone() for t in fill + fill]
+        _kv_model(x[:, 0], x[:, 1], got, cur, replicate)
+        ref.kv_append_int8_ref(x[:, 0], x[:, 1], *want, cur, replicate)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)

@@ -11,7 +11,8 @@ reciprocal multiply);
 the edge softmax to 1e-5, its gradients to 1e-4 rel / 1e-5 abs; the
 activation quantizer's codes exactly and its scales exactly against the
 JAX formula (to one float32 ulp against the interpret-mode Pallas kernel,
-which XLA rewrites to multiply by 1/127); the int8-KV decode attention to
+which XLA rewrites to multiply by 1/127); the int8 KV write's whole cache
+byte for byte against the JAX decode's write; the int8-KV decode attention to
 2e-4 against the Pallas kernel and its oracle (the JAX gate) and to 1e-6
 against the JAX decode's masked formula.
 
@@ -34,7 +35,7 @@ from repro.kernels.attention_int8kv import \
 from repro_torch.core.codebook import make_codebook
 from repro_torch.core.mddq import MDDQConfig
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.act_quant import act_quant
+from repro_torch.kernels.act_quant import act_quant, kv_append_int8
 from repro_torch.kernels.attention_int8kv import (decode_attention_int8kv,
                                                  n_splits)
 from repro_torch.kernels.edge_softmax import edge_softmax_fused
@@ -389,6 +390,116 @@ class TestActQuant:
             want = [kq, ks, vq, vs]
         for g, w in zip(got, want):
             np.testing.assert_array_equal(_np(g), w)
+
+
+# --- the int8 KV write (K5's KV entry) -------------------------------------------
+
+def _kv_cache(rng, L, B, H, S, hd):
+    """A stacked (L, ...) int8 cache filled with random codes, -128 (never
+    a code) at every other position, and scales with NaNs among them: a
+    write outside its slot shows in the bytes."""
+    q = rng.integers(-127, 128, size=(2, L, B, H, S, hd)).astype(np.int8)
+    q[..., ::2, :] = -128
+    s = rng.uniform(0.01, 1.0, size=(2, L, B, H, S)).astype(np.float32)
+    s[..., 1::3] = np.nan
+    return q, s
+
+
+def _kv_new(rng, B, nkv, hd, dtype):
+    """The new token's K and V as strided views of one (B, 2, nkv, hd)
+    projection, rows of very different magnitudes, K's first row zero."""
+    x = (rng.normal(size=(B, 2, nkv, hd))
+         * np.exp(rng.normal(size=(B, 2, nkv, 1)))).astype(np.float32)
+    x[0, 0, 0] = 0.0
+    if dtype == "bf16":         # the values bf16 can hold, in both packages
+        x = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    return x
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view(np.uint32) if a.dtype == np.float32 else a
+
+
+class TestKVAppend:
+    @pytest.mark.parametrize("replicate", [1, 3])
+    @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+    def test_ref_matches_the_jax_decode_write(self, dtype, replicate):
+        """``kv_append_int8_ref`` on a layer view of a stacked cache equals
+        the JAX decode's KV write (``_jax_kv_write`` on the repeated rows,
+        then ``dynamic_update_index_in_dim`` on each cache tensor) byte for
+        byte over the whole cache, the untouched positions included."""
+        rng = np.random.default_rng(11 + replicate)
+        L, B, nkv, S, hd, layer = 3, 2, 2, 5, 64, 1
+        H = nkv * replicate
+        cq, cs = _kv_cache(rng, L, B, H, S, hd)
+        x = _kv_new(rng, B, nkv, hd, dtype)
+        jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                    else (jnp.bfloat16, torch.bfloat16))
+        for cur in (0, 3, S - 1):
+            tq, ts = _t(cq), _t(cs)
+            xt = _t(x).to(tdt)
+            ref.kv_append_int8_ref(xt[:, 0], xt[:, 1], tq[0, layer],
+                                   ts[0, layer], tq[1, layer], ts[1, layer],
+                                   cur, replicate)
+            jq, js = cq.copy(), cs.copy()
+            for t in range(2):
+                rows = jnp.repeat(jnp.asarray(x[:, t], jdt), replicate,
+                                  axis=1)
+                codes, scales = _jax_kv_write(rows)
+                jq[t, layer] = np.asarray(jax.lax.dynamic_update_index_in_dim(
+                    jnp.asarray(cq[t, layer]), codes, cur, 2))
+                js[t, layer] = np.asarray(jax.lax.dynamic_update_index_in_dim(
+                    jnp.asarray(cs[t, layer]), scales, cur, 2))
+            np.testing.assert_array_equal(_np(tq), jq)
+            np.testing.assert_array_equal(_bits(_np(ts)), _bits(js))
+            assert (jq[:, layer, :, :, cur] != -128).all()
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_cpu_tensors_run_the_plain_version(self, dtype):
+        """On CPU tensors the wrapper is the plain version, launch count
+        unchanged, and ``ops.append_kv_int8`` is the wrapper."""
+        rng = np.random.default_rng(3)
+        cq, cs = _kv_cache(rng, 2, 3, 6, 4, 8)
+        x = _t(_kv_new(rng, 3, 2, 8, "f32")).to(dtype)
+        got = [_t(cq), _t(cs)]
+        want = [_t(cq), _t(cs)]
+        before = kv_append_int8.launches
+        kv_append_int8(x[:, 0], x[:, 1], got[0][0, 1], got[1][0, 1],
+                       got[0][1, 1], got[1][1, 1], 2, 3)
+        ref.kv_append_int8_ref(x[:, 0], x[:, 1], want[0][0, 1],
+                               want[1][0, 1], want[0][1, 1], want[1][1, 1],
+                               2, 3)
+        via_ops = [_t(cq), _t(cs)]
+        ops.append_kv_int8(x[:, 0], x[:, 1], via_ops[0][0, 1],
+                           via_ops[1][0, 1], via_ops[0][1, 1],
+                           via_ops[1][1, 1], 2, 3)
+        for a in (got, via_ops):
+            assert torch.equal(a[0], want[0])
+            assert torch.equal(a[1].view(torch.int32),
+                               want[1].view(torch.int32))
+        assert kv_append_int8.launches == before
+        assert act_quant.launches == 0
+
+    def test_rejects_a_slot_outside_the_cache_or_mismatched_shapes(self):
+        """Checked on every device, before the plain version or the kernel
+        runs (a negative index would otherwise write the last slot)."""
+        rng = np.random.default_rng(4)
+        cq, cs = (_t(a) for a in _kv_cache(rng, 1, 2, 2, 4, 8))
+        x = _t(_kv_new(rng, 2, 2, 8, "f32"))
+        kv = (cq[0, 0], cs[0, 0], cq[1, 0], cs[1, 0])
+        before = (cq.clone(), cs.clone())
+        for bad in (4, 5, -1):
+            with pytest.raises(ValueError, match="cur_index"):
+                kv_append_int8(x[:, 0], x[:, 1], *kv, bad)
+        with pytest.raises(ValueError, match="k_q"):     # replicate 2: H=4
+            kv_append_int8(x[:, 0], x[:, 1], *kv, 0, 2)
+        with pytest.raises(ValueError, match="v_new"):
+            kv_append_int8(x[:, 0], x[:, 1, :1], *kv, 0)
+        with pytest.raises(ValueError, match="replicate"):
+            kv_append_int8(x[:, 0], x[:, 1], *kv, 0, 0)
+        assert torch.equal(cq, before[0])
+        assert torch.equal(cs.view(torch.int32), before[1].view(torch.int32))
 
 
 # --- int8-KV decode attention (K6) ----------------------------------------------

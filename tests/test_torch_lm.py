@@ -31,7 +31,8 @@ from repro.models.lm import transformer as jtfm
 from repro.models.lm.config import LMConfig as JLMConfig
 from repro.quant import apply as japply
 from repro_torch import configs
-from repro_torch.kernels.act_quant import act_quant
+from repro_torch.kernels import ops
+from repro_torch.kernels.act_quant import act_quant, kv_append_int8
 from repro_torch.kernels.attention_int8kv import decode_attention_int8kv
 from repro_torch.launch import serve
 from repro_torch.models.lm import layers
@@ -246,6 +247,7 @@ def test_decode_matches_jax_f32(arch, mode, kv_quant):
                 _np(tcache["blocks"][name]),
                 np.asarray(jcache["blocks"][name]), rtol=1e-5, atol=0)
     assert act_quant.launches == 0 and decode_attention_int8kv.launches == 0
+    assert kv_append_int8.launches == 0
 
 
 @pytest.mark.parametrize("kv_quant", [True, False])
@@ -305,6 +307,54 @@ def test_qk_norm_and_kv_replicate_match_jax():
         tl, _ = tfm.decode_step(tp, cfg, tc, _t(t), i)
         np.testing.assert_allclose(_np(tl), np.asarray(jl), rtol=0,
                                    atol=1e-5 * float(np.abs(jl).max()))
+
+
+def _stacked_kv_write(k_new, v_new, k_q, k_s, v_q, v_s, cur_index,
+                      replicate=1):
+    """The decode's int8 KV write as the port first wrote it: repeat the
+    kv heads, quantize the stacked rows, write four slices."""
+    if replicate > 1:
+        k_new = torch.repeat_interleave(k_new, replicate, dim=1)
+        v_new = torch.repeat_interleave(v_new, replicate, dim=1)
+    kq, ks, vq, vs = ops.prepare_kv_int8(k_new, v_new)
+    k_q[:, :, cur_index] = kq
+    v_q[:, :, cur_index] = vq
+    k_s[:, :, cur_index] = ks
+    v_s[:, :, cur_index] = vs
+
+
+@pytest.mark.parametrize("arch,extra,dtype", [
+    ("qwen2-0.5b", {}, torch.bfloat16),
+    ("llama3.2-3b", {"kv_replicate": 3, "qk_norm": True}, torch.float32),
+    ("llama3.2-3b", {"kv_replicate": 3}, torch.bfloat16)])
+def test_kv_write_leaves_the_cache_as_the_stacked_write(monkeypatch, arch,
+                                                        extra, dtype):
+    """On CPU tensors ``ops.append_kv_int8`` fills the int8 cache with the
+    same bytes, step after step, as the stacked write it replaced (repeat,
+    one act-quant of the stacked rows, four slice writes), and the logits
+    are the same bits."""
+    cfg = dataclasses.replace(
+        serve.lm_config(arch, smoke=True, quant="serve_w8a8", kv_quant=True),
+        dtype=dtype, **extra)
+    lm = serve.build_lm(cfg, seed=1, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(6, 2, 1)))
+
+    def run():
+        cache = tfm.init_cache(cfg, 2, 8, "cpu")
+        out = [serve.decode(lm, cache, toks[i], i) for i in range(6)]
+        return torch.stack(out), cache["blocks"]
+    new_logits, new_cache = run()
+    monkeypatch.setattr(ops, "append_kv_int8", _stacked_kv_write)
+    old_logits, old_cache = run()
+    assert torch.equal(new_logits, old_logits)
+    for name in ("k_q", "v_q"):
+        assert torch.equal(new_cache[name], old_cache[name])
+        assert new_cache[name][:, :, :, :6].any()
+    for name in ("k_s", "v_s"):
+        assert torch.equal(new_cache[name].view(torch.int32),
+                           old_cache[name].view(torch.int32))
+    assert kv_append_int8.launches == 0
 
 
 def test_serve_cli_runs_on_the_cpu(capsys):
