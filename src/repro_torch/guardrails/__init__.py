@@ -2,7 +2,8 @@
 from repro_torch.guardrails.detectors import (Flag, ForceEnvelope,
                                               GuardrailConfig,
                                               GuardrailViolation,
+                                              check_finite_tree,
                                               check_result)
 
 __all__ = ["Flag", "ForceEnvelope", "GuardrailConfig", "GuardrailViolation",
-           "check_result"]
+           "check_finite_tree", "check_result"]

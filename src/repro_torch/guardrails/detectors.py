@@ -3,7 +3,8 @@
 A copy of the JAX package's numpy detectors (the port imports nothing of
 that package): ``check_result`` flags non-finite energies or forces
 (fatal) and force norms above a calibrated per-bucket envelope (suspect).
-``QuantizedEngine.infer_batch`` runs the non-finite check by default.
+``QuantizedEngine.infer_batch`` runs the non-finite check by default;
+``md.MDEngine`` runs ``check_finite_tree`` at its record checkpoints.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 
 __all__ = ["Flag", "ForceEnvelope", "GuardrailConfig", "GuardrailViolation",
-           "check_result"]
+           "check_result", "check_finite_tree"]
 
 FATAL = "fatal"
 SUSPECT = "suspect"
@@ -142,3 +143,12 @@ def check_result(energy: float, forces: np.ndarray, capacity: int,
                 flags.append(Flag("force_outlier", SUSPECT, value=m,
                                   limit=lim))
     return tuple(flags)
+
+
+def check_finite_tree(arrays: Dict[str, np.ndarray]) -> Optional[str]:
+    """Name of the first non-finite array in a dict of host arrays
+    (None when all finite) — the MD per-checkpoint finite check."""
+    for name, a in arrays.items():
+        if not bool(np.isfinite(np.asarray(a)).all()):
+            return name
+    return None

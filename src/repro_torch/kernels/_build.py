@@ -48,7 +48,7 @@ _SIGNATURES = {
     "repro_qmm_w4a8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_qmm_w8a8_f32a": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_qmm_w4a8_f32a": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "repro_edge_softmax": (_P, _P, _P, _P, _P, _P, _P, _P,
+    "repro_edge_softmax": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _P),
     "repro_mddq_encode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _F, _F, _F, _F, _I, _P),

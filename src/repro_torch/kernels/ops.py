@@ -30,7 +30,8 @@ from repro_torch.kernels.ref import edge_softmax_ref
 
 __all__ = ["prepare_w8", "prepare_w4", "quantize_activations",
            "matmul_w8a8", "matmul_w4a8", "mddq_encode",
-           "mddq_qdq_kernel", "edge_gather", "edge_softmax",
+           "mddq_qdq_kernel", "edge_gather", "refine_edge_mask",
+           "edge_softmax",
            "prepare_kv_int8", "append_kv_int8", "decode_attention_int8kv"]
 
 
@@ -137,14 +138,30 @@ def edge_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.index_select(x, 0, idx)
 
 
+def refine_edge_mask(coords_flat: torch.Tensor, senders: torch.Tensor,
+                     receivers: torch.Tensor, edge_mask: torch.Tensor,
+                     cutoff: float) -> torch.Tensor:
+    """A Verlet-skin list's mask tightened to the true cutoff at the
+    current coordinates: ``edge_mask & (d^2 < cutoff^2)``, the predicate
+    of ``serving.bucketing.device_edge_list``. The edges it drops stay in
+    the list's layout, inside their receivers' runs, which the edge
+    softmax takes (pass the unrefined mask as its ``layout_mask``).
+    Boolean output, no gradient. coords_flat: (N, 3); senders, receivers:
+    (E,) int32; edge_mask: (E,) bool."""
+    rij = coords_flat.index_select(0, senders) \
+        - coords_flat.index_select(0, receivers)
+    d2 = (rij * rij).sum(-1)
+    return edge_mask & (d2 < cutoff * cutoff)
+
+
 class _EdgeSoftmax(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q_scaled, k, bias, values, senders, receivers,
-                edge_mask, cap: int):
+                edge_mask, cap: int, layout_mask):
         ctx.save_for_backward(q_scaled, k, bias, values, senders, receivers,
                               edge_mask)
         return edge_softmax_fused(q_scaled, k, bias, values, senders,
-                                  receivers, edge_mask, cap)
+                                  receivers, edge_mask, cap, layout_mask)
 
     @staticmethod
     def backward(ctx, g):
@@ -156,22 +173,25 @@ class _EdgeSoftmax(torch.autograd.Function):
             out = edge_softmax_ref(ins[0], ins[1], ins[2], senders, receivers,
                                    edge_mask, ins[3], q.shape[0])
             grads = torch.autograd.grad(out, ins, g)
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def edge_softmax(q_scaled, k, bias, values, senders, receivers, edge_mask,
-                 *, cap: int) -> torch.Tensor:
+                 *, cap: int, layout_mask=None) -> torch.Tensor:
     """out[i] = sum_{e: recv(e)=i} alpha_e * values[e], alpha the segment
     softmax of q_scaled[recv] . k[send] + bias over each receiver.
 
     Always the fused kernel on CUDA tensors (and its plain version on CPU
     tensors), differentiable through the plain version's gradients. The
-    inputs follow the ``bucketing.EdgeList`` layout; a receiver with no
-    real edge yields exactly 0.
+    inputs follow the ``bucketing.EdgeList`` layout, whose mask is
+    ``layout_mask`` (None: ``edge_mask``); ``edge_mask`` may be any subset
+    of it, such as a refined skin list (:func:`refine_edge_mask`). A
+    receiver with no unmasked edge yields exactly 0.
     """
     return _EdgeSoftmax.apply(q_scaled.contiguous(), k.contiguous(),
                               bias.contiguous(), values.contiguous(),
-                              senders, receivers, edge_mask, cap)
+                              senders, receivers, edge_mask, cap,
+                              layout_mask)
 
 
 # --- int8-KV decode attention (K5 for the cache write, K6) --------------------

@@ -11,7 +11,8 @@ Every bucket also carries an edge capacity for the sparse path:
 ``build_edge_list`` fills each molecule's slots with its real cutoff-graph
 edges (sorted by receiver) and pads the rest with masked self-loops on
 the molecule's first atom. The edge-softmax kernel relies on that layout
-(``kernels/csrc/edge_softmax.cu``).
+(``kernels/csrc/edge_softmax.cu``). ``device_edge_list`` builds the same
+layout from device tensors with no host sync, for MD's skin lists.
 """
 from __future__ import annotations
 
@@ -19,10 +20,11 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 __all__ = ["Graph", "BucketSpec", "BatchPlan", "EdgeList", "assign_bucket",
            "plan_batches", "pad_graphs", "build_edge_list",
-           "count_edges", "default_edge_capacity",
+           "count_edges", "default_edge_capacity", "device_edge_list",
            "random_graph", "random_graphs", "MXU_LANE", "EDGE_LANE"]
 
 MXU_LANE = 128  # minor-dim tile side of the TPU MXU; the 128-alignment contract
@@ -279,3 +281,50 @@ def build_edge_list(coords: np.ndarray, mask: np.ndarray, cutoff: float,
                     receivers=receivers.reshape(-1),
                     edge_mask=edge_mask.reshape(-1), edge_capacity=ec,
                     n_real=int(counts.sum()))
+
+
+def device_edge_list(coords: torch.Tensor, mask: torch.Tensor,
+                     cutoff: float, edge_capacity: int):
+    """:func:`build_edge_list` on the device, with no host sync.
+
+    coords: (B, cap, 3) f32, mask: (B, cap) bool tensors on one device.
+    Same layout contract (per-molecule slot ranges, real edges first in
+    row-major (i, j) order, i.e. receiver-sorted, then masked self-loops
+    on the molecule's first atom slot), built by a stable sort of each
+    molecule's flattened adjacency so the slot order is the host
+    builder's. Instead of the host builder's ``None`` it returns
+    ``(senders, receivers, edge_mask, counts)`` with ``counts`` (B,) the
+    per-molecule real-edge count: the list is valid only where
+    ``counts <= edge_capacity``, which the caller checks at a sync point
+    of its own. The predicate is ``d^2 < cutoff^2``, as in
+    ``kernels.ops.refine_edge_mask``.
+    """
+    B, cap = mask.shape
+    ec = edge_capacity
+    dev = coords.device
+    rij = coords[:, :, None, :] - coords[:, None, :, :]      # [b, i, j]
+    d2 = (rij * rij).sum(-1)
+    eye = torch.eye(cap, dtype=torch.bool, device=dev)
+    adj = ((d2 < cutoff * cutoff) & ~eye & mask[:, :, None]
+           & mask[:, None, :])                               # (B, cap, cap)
+    flat = adj.reshape(B, cap * cap)
+    counts = flat.sum(1)
+
+    k = min(ec, cap * cap)
+    # stable: edge positions first, in row-major order (CUDA sorts no
+    # bool, hence the cast)
+    order = torch.argsort((~flat).to(torch.uint8), dim=1,
+                          stable=True)[:, :k]
+    valid = torch.take_along_dim(flat, order, dim=1)         # (B, k)
+    order = order.to(torch.int32)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    i = torch.where(valid, order // cap, zero)
+    j = torch.where(valid, order % cap, zero)
+    if k < ec:
+        pad = (0, ec - k)
+        i = torch.nn.functional.pad(i, pad)
+        j = torch.nn.functional.pad(j, pad)
+        valid = torch.nn.functional.pad(valid, pad)
+    base = (torch.arange(B, dtype=torch.int32, device=dev) * cap)[:, None]
+    return ((base + j).reshape(-1), (base + i).reshape(-1),
+            valid.reshape(-1), counts)

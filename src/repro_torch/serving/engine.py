@@ -19,9 +19,10 @@ masking of padded atoms.
     results = engine.infer_batch([Graph(species, coords), ...])
 
 The engine runs on CUDA unless ``device="cpu"`` is passed (then every
-kernel runs its plain PyTorch version). Not ported yet: the metrics
-registry, the sampled LEE probe of the guardrails, the MD bridge and the
-packed-artifact constructor.
+kernel runs its plain PyTorch version). ``md_engine()`` hands the
+quantized weights and codebook to an ``md.MDEngine``. Not ported yet: the
+engine's writes to the metrics registry, the sampled LEE probe of the
+guardrails and the packed-artifact constructor.
 """
 from __future__ import annotations
 
@@ -33,20 +34,20 @@ import numpy as np
 import torch
 
 from repro_torch.core.codebook import make_codebook
+from repro_torch.core.lee import random_rotations
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.guardrails import (GuardrailConfig, GuardrailViolation,
                                     check_result)
 from repro_torch.models.so3krates import So3kratesConfig, init_params
 from repro_torch.serving.bucketing import (BucketSpec, Graph,
-                                           build_edge_list, pad_graphs,
-                                           plan_batches)
+                                           build_edge_list, count_edges,
+                                           pad_graphs, plan_batches)
 from repro_torch.serving.forward import (batched_energy_and_forces,
                                          sparse_energy_and_forces)
 from repro_torch.serving.qparams import (fp32_bytes, quantize_so3_params,
                                          serving_bytes)
 
-__all__ = ["ServeConfig", "MoleculeResult", "QuantizedEngine",
-           "random_rotations"]
+__all__ = ["ServeConfig", "MoleculeResult", "QuantizedEngine"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,20 +100,6 @@ class MoleculeResult:
     batch_size: int          # batch rows (incl. alignment dummies)
     path: str = "dense"      # execution path the molecule's batch took
     flags: tuple = ()        # guardrail Flags that fired (mode "mark")
-
-
-def random_rotations(seed: int, n: int) -> np.ndarray:
-    """n uniform (Haar) rotations from normalized Gaussian quaternions,
-    drawn with numpy. (n, 3, 3) float64."""
-    q = np.random.default_rng(seed).standard_normal((n, 4))
-    w, x, y, z = (q / np.linalg.norm(q, axis=1, keepdims=True)).T
-    return np.stack([
-        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
-                  2 * (x * z + y * w)], -1),
-        np.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
-                  2 * (y * z - x * w)], -1),
-        np.stack([2 * (x * z - y * w), 2 * (y * z + x * w),
-                  1 - 2 * (x * x + y * y)], -1)], axis=1)
 
 
 class QuantizedEngine:
@@ -296,23 +283,64 @@ class QuantizedEngine:
                     batch_size=plan.batch_size, path=path)
         return results  # type: ignore[return-value]
 
+    # -- MD bridge ----------------------------------------------------------
+
+    def md_engine(self, md=None):
+        """A :class:`repro_torch.md.MDEngine` on this engine's device that
+        shares its quantized weights and codebook: serve traffic and run
+        MD off one set of serving-format parameters. ``md`` is an
+        ``MDConfig`` whose ``mode`` must match (default: one built from
+        this engine's mode)."""
+        from repro_torch.md.engine import MDConfig, MDEngine
+        if md is None:
+            md = MDConfig(mode=self.serve.mode)
+        if md.mode != self.serve.mode:
+            raise ValueError(
+                f"MDConfig.mode {md.mode!r} != ServeConfig.mode "
+                f"{self.serve.mode!r}: the quantized weights are shared")
+        return MDEngine(self.model_cfg, md=md, qparams=self.qparams,
+                        codebook=self._codebook, device=self.device)
+
     # -- diagnostics --------------------------------------------------------
 
+    def edge_occupancy(self, graphs: Sequence[Graph]) -> Dict[str, float]:
+        """How full the sparse path's edge slots would be for this traffic:
+        per-plan real-edge counts against capacity (for sizing
+        ``ServeConfig.edge_capacity``)."""
+        occ, overflow = [], 0
+        for plan in plan_batches(graphs, self._buckets):
+            _, coords, mask = pad_graphs(graphs, plan,
+                                         pad_species=self.serve.pad_species)
+            counts = count_edges(coords, mask, self.model_cfg.cutoff)
+            cap_e = plan.bucket.edges
+            occ.append(float(counts.max()) / cap_e)
+            overflow += int((counts > cap_e).sum())
+        return {"max_occupancy": max(occ) if occ else 0.0,
+                "mean_occupancy": float(np.mean(occ)) if occ else 0.0,
+                "molecules_overflowing": overflow}
+
     def lee_diagnostic(self, graphs: Sequence[Graph], seed: int = 0,
-                       n_rotations: int = 4) -> Dict[str, float]:
+                       n_rotations: int = 4,
+                       rotations: Optional[np.ndarray] = None
+                       ) -> Dict[str, float]:
         """Local Equivariance Error of the served model,
-        || F(R.G) - R F(G) || per molecule over ``n_rotations`` Haar
-        rotations from ``seed`` (padded atoms are excluded: their forces
-        are exactly zero on both sides)."""
+        || F(R.G) - R F(G) || per molecule, over ``rotations`` ((n, 3, 3),
+        e.g. the JAX package's) or else ``n_rotations`` Haar rotations
+        drawn from ``seed`` (``core.lee.random_rotations``). Coordinates
+        and rotations are float32 and rotate in float32, as in the JAX
+        package. Padded atoms are excluded: their forces are exactly zero
+        on both sides."""
+        rots = (random_rotations(seed, n_rotations) if rotations is None
+                else np.asarray(rotations, np.float32))
         base = self._infer_raw(graphs)
         errs = []
-        for R in random_rotations(seed, n_rotations):
+        for R in rots:
             rotated = [Graph(g.species,
-                             (np.asarray(g.coords) @ R.T).astype(np.float32))
+                             np.asarray(g.coords, np.float32) @ R.T)
                        for g in graphs]
             for r0, r1 in zip(base, self._infer_raw(rotated)):
                 errs.append(float(np.linalg.norm(
                     r1.forces - r0.forces @ R.T)))
         return {"lee_mean": float(np.mean(errs)),
                 "lee_max": float(np.max(errs)),
-                "n_rotations": n_rotations, "n_graphs": len(graphs)}
+                "n_rotations": len(rots), "n_graphs": len(graphs)}

@@ -168,14 +168,20 @@ def sparse_energy(qparams: QuantizedParams, cfg: So3kratesConfig,
                   receivers: torch.Tensor, edge_mask: torch.Tensor,
                   codebook: Optional[torch.Tensor] = None,
                   *, quant_vectors: bool = True,
-                  mddq_kernel: bool = False) -> torch.Tensor:
+                  mddq_kernel: bool = False,
+                  refine_cutoff: bool = False) -> torch.Tensor:
     """Per-molecule energies over a padded edge list — the O(E) path.
 
     species/coords/mask as in ``batched_energy``; senders/receivers are
     flat int32 indices into the (B * n,) node axis and edge_mask the
     per-slot validity bit, laid out per the ``bucketing.EdgeList``
     contract (per-molecule slot ranges, receiver-sorted real edges).
-    Returns (B,) f32.
+    ``refine_cutoff=True`` treats ``edge_mask`` as a Verlet-skin list
+    built at an enlarged radius and tightens it to ``d < cfg.cutoff`` at
+    the current coordinates from the distances computed here (the MD
+    engine's per-step refinement, the predicate of
+    ``kernels.ops.refine_edge_mask``); the unrefined mask stays the edge
+    softmax's layout. Returns (B,) f32.
     """
     B, n = species.shape
     N = B * n
@@ -187,7 +193,11 @@ def sparse_energy(qparams: QuantizedParams, cfg: So3kratesConfig,
     coords_f = coords.reshape(N, 3)
     rij = ops.edge_gather(coords_f, senders) \
         - ops.edge_gather(coords_f, receivers)               # (E, 3) r_j-r_i
-    d = torch.sqrt((rij ** 2).sum(-1) + 1e-12)
+    d2 = (rij ** 2).sum(-1)
+    layout_mask = edge_mask
+    if refine_cutoff:
+        edge_mask = edge_mask & (d2 < cfg.cutoff * cfg.cutoff)
+    d = torch.sqrt(d2 + 1e-12)
     u = rij / d[..., None]                                   # (E, 3)
     rbf_e = _rbf(d, cfg) * edge_mask[..., None]              # (E, K)
 
@@ -230,7 +240,7 @@ def sparse_energy(qparams: QuantizedParams, cfg: So3kratesConfig,
         vals = torch.cat([gate_e * msg_e, vec_e.reshape(-1, Fv * 3)], dim=1)
 
         out = ops.edge_softmax(q_s, k_s, bias_e, vals, senders, receivers,
-                               edge_mask, cap=n)
+                               edge_mask, cap=n, layout_mask=layout_mask)
         x = x + out[:, :F]
         h = Fn.silu(qmatmul(x, qparams[f"{L}/w_upd1"]))
         x = x + qmatmul(h, qparams[f"{L}/w_upd2"])
@@ -249,7 +259,8 @@ def sparse_energy(qparams: QuantizedParams, cfg: So3kratesConfig,
 
 def sparse_energy_and_forces(qparams, cfg, species, coords, mask, senders,
                              receivers, edge_mask, codebook=None, *,
-                             quant_vectors=True, mddq_kernel=False):
+                             quant_vectors=True, mddq_kernel=False,
+                             refine_cutoff=False):
     """Sparse-path energies (B,) and conservative forces (B, n, 3). The
     edge list is data (no gradient); padded atoms, which appear in no
     real edge, get exactly zero force."""
@@ -257,4 +268,5 @@ def sparse_energy_and_forces(qparams, cfg, species, coords, mask, senders,
         lambda c: sparse_energy(qparams, cfg, species, c, mask, senders,
                                 receivers, edge_mask, codebook,
                                 quant_vectors=quant_vectors,
-                                mddq_kernel=mddq_kernel), coords)
+                                mddq_kernel=mddq_kernel,
+                                refine_cutoff=refine_cutoff), coords)

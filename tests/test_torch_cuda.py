@@ -13,7 +13,8 @@ their plain versions' arithmetic in the same order); the edge softmax and
 the int8-KV decode attention to 1e-5 (their sums run in another order).
 The LM decode on the card against the CPU plain path to 1e-4 of the
 largest |logit| (float32 smoke config; the card's cuBLAS sums in another
-order than the CPU).
+order than the CPU), and so are 10 MD steps (w8a8, MDDQ off) in
+coordinates and total energy; the device edge list bit for bit.
 """
 import numpy as np
 import pytest
@@ -28,10 +29,11 @@ from repro_torch.kernels.mddq_kernel import mddq_encode_kernel, probe_vectors
 from repro_torch.kernels.quant_matmul import (w4a8_matmul, w4a8_matmul_f32a,
                                               w8a8_matmul, w8a8_matmul_f32a)
 from repro_torch.launch import serve
+from repro_torch.md import MDConfig, MDEngine, pad_replicas
 from repro_torch.models.lm.transformer import init_cache
 from repro_torch.models.so3krates import So3kratesConfig
 from repro_torch.serving import QuantizedEngine, ServeConfig, random_graphs
-from repro_torch.serving.bucketing import build_edge_list
+from repro_torch.serving.bucketing import build_edge_list, device_edge_list
 
 pytestmark = pytest.mark.cuda
 
@@ -212,6 +214,93 @@ def test_edge_softmax_matches_plain(cuda):
     has_edge[r[m].long()] = True
     assert not has_edge[cap:2 * cap].any()
     assert (got[~has_edge] == 0).all()
+
+
+@pytest.mark.parametrize("layout", ["md", "every_pair"])
+def test_edge_softmax_refined_skin_list(cuda, layout):
+    """An MD skin list refined to a smaller cutoff (holes inside the
+    receivers' runs) with every listed edge of three receivers masked:
+    the search runs on the layout mask, masked edges drop out, emptied
+    receivers write exactly 0; one launch."""
+    rng = np.random.default_rng(11)
+    if layout == "md":      # chip_smoke phase 5's layout, 8 x 24 atoms
+        B, cap, ec, skin_cut, cut = 8, 24, 640, 10.45, 5.0
+        coords = rng.uniform(0, (cap / 0.1) ** (1 / 3), size=(B, cap, 3))
+    else:                   # 63 listed edges per receiver, two chunks
+        B, cap, ec, skin_cut, cut = 4, 64, 4096, 10.0, 3.0
+        coords = rng.uniform(0, 5.0, size=(B, cap, 3))
+    coords = torch.from_numpy(coords.astype(np.float32)).to(cuda)
+    s, r, lay, _ = device_edge_list(
+        coords, torch.ones((B, cap), dtype=torch.bool, device=cuda),
+        skin_cut, ec)
+    m = ops.refine_edge_mask(coords.reshape(-1, 3), s, r, lay, cut)
+    emptied = torch.tensor([1, cap + 5, B * cap - 1], dtype=torch.int32,
+                           device=cuda)
+    m &= ~torch.isin(r, emptied)
+    assert bool((m != lay).any())
+    n, e, F, W = B * cap, B * ec, 64, 112
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa
+    q, k = t(rng.normal(size=(n, F))), t(rng.normal(size=(n, F)))
+    bias, vals = t(rng.normal(size=e)), t(rng.normal(size=(e, W)))
+    before = edge_softmax_fused.launches
+    got = edge_softmax_fused(q, k, bias, vals, s, r, m, cap, lay)
+    assert edge_softmax_fused.launches == before + 1
+    want = ref.edge_softmax_ref(q, k, bias, s, r, m, vals, n)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert (got[emptied.long()] == 0).all()
+    _edge_softmax_exact_zeros(got, r, m, n)
+
+
+@pytest.mark.parametrize("ns,cap,ec,cutoff", [
+    ((24,) * 8, 24, 640, 10.45), ((5, 16, 1, 9), 16, 256, 3.0),
+    ((4, 3), 4, 128, 3.0)])
+def test_device_edge_list_card_matches_cpu(cuda, ns, cap, ec, cutoff):
+    rng = np.random.default_rng(cap)
+    coords = np.zeros((len(ns), cap, 3), np.float32)
+    mask = np.zeros((len(ns), cap), bool)
+    for b, n in enumerate(ns):
+        coords[b, :n] = rng.uniform(0, (n / 0.1) ** (1 / 3), size=(n, 3))
+        mask[b, :n] = True
+    cpu = device_edge_list(torch.from_numpy(coords), torch.from_numpy(mask),
+                           cutoff, ec)
+    card = device_edge_list(torch.from_numpy(coords).to(cuda),
+                            torch.from_numpy(mask).to(cuda), cutoff, ec)
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_md_on_card_matches_cpu_plain_path(cuda):
+    """10 MD steps, w8a8 with MDDQ off, the same weights and initial
+    velocities on both devices: coordinates and total energies to 1e-4
+    of the largest |value|, the card through K1'/K3 (and no K5/K6)."""
+    cfg = So3kratesConfig(feat=16, vec_feat=4, n_layers=2, n_rbf=4,
+                          dir_bits=6, cutoff=3.0)
+    rng = np.random.default_rng(5)
+    sp = rng.integers(0, cfg.n_species, 20).astype(np.int32)
+    co = rng.uniform(0, (20 / 0.1) ** (1 / 3), size=(20, 3)).astype(
+        np.float32)
+    spec, coords, mask = pad_replicas(sp, co, 2)
+    masses = np.full(20, 12.0, np.float32)
+    md = MDConfig(mode="w8a8", dt_fs=0.25, record_every=5, skin=0.1,
+                  quant_vectors=False)
+    out = {}
+    for dev in (cuda, "cpu"):
+        eng = MDEngine(cfg, md=md, device=dev)
+        st = eng.init_state(3, spec, coords, mask, masses, 300.0)
+        before = (w8a8_matmul_f32a.launches, edge_softmax_fused.launches,
+                  act_quant.launches, decode_attention_int8kv.launches)
+        st, rec = eng.run(st, spec, mask, masses, n_steps=10)
+        after = (w8a8_matmul_f32a.launches, edge_softmax_fused.launches,
+                 act_quant.launches, decode_attention_int8kv.launches)
+        out[str(dev)] = (st.coords.cpu().numpy(), rec, before, after)
+    c_card, r_card, before, after = out[str(cuda)]
+    c_cpu, r_cpu, _, _ = out["cpu"]
+    assert after[0] > before[0] and after[1] - before[1] == 2 * 10
+    assert after[2:] == before[2:]
+    assert np.abs(c_card - c_cpu).max() <= 1e-4 * np.abs(c_cpu).max()
+    assert np.abs(r_card["e_tot"] - r_cpu["e_tot"]).max() \
+        <= 1e-4 * np.abs(r_cpu["e_tot"]).max()
+    assert r_card["n_rebuilds"] == r_cpu["n_rebuilds"]
 
 
 @pytest.mark.parametrize("n,bits", [(1, 6), (4096, 16), (1000, 12)])

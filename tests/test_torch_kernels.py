@@ -38,11 +38,13 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.act_quant import act_quant, kv_append_int8
 from repro_torch.kernels.attention_int8kv import (decode_attention_int8kv,
                                                  n_splits)
-from repro_torch.kernels.edge_softmax import edge_softmax_fused
+from repro_torch.kernels.edge_softmax import (chunked_softmax_model,
+                                              edge_softmax_fused,
+                                              segment_bounds_model)
 from repro_torch.kernels.mddq_kernel import mddq_encode_kernel
 from repro_torch.kernels.quant_matmul import (w4a8_matmul, w4a8_matmul_f32a,
                                               w8a8_matmul, w8a8_matmul_f32a)
-from repro_torch.serving.bucketing import build_edge_list
+from repro_torch.serving.bucketing import build_edge_list, device_edge_list
 
 
 def _np(x):
@@ -315,6 +317,79 @@ class TestEdgeSoftmax:
                 np.testing.assert_array_equal(np.arange(lo, hi) + b * ec,
                                               real)
         assert not raw_sorted
+
+
+def _refined_skin_problem(layout, seed=0, F=16, W=28):
+    """A skin list (``device_edge_list`` at an enlarged radius) refined to
+    a smaller cutoff, which masks edges in the middle of receivers' runs,
+    with every listed edge of three receivers masked as well. "md": the
+    MD smoke's layout, 2 x 24 atoms at 0.1 per cubic Angstrom, listed at
+    10.45 A and refined to 5 A; "every_pair": four 64-atom molecules
+    inside one 10 A list (two 32-edge chunks per receiver), refined to
+    3 A."""
+    rng = np.random.default_rng(seed)
+    if layout == "md":
+        B, cap, ec, skin_cut, cut = 2, 24, 640, 10.45, 5.0
+        coords = rng.uniform(0, (cap / 0.1) ** (1 / 3), size=(B, cap, 3))
+    else:
+        B, cap, ec, skin_cut, cut = 4, 64, 4096, 10.0, 3.0
+        coords = rng.uniform(0, 5.0, size=(B, cap, 3))
+    coords = torch.from_numpy(coords.astype(np.float32))
+    s, r, layout_mask, _ = device_edge_list(
+        coords, torch.ones((B, cap), dtype=torch.bool), skin_cut, ec)
+    m = ops.refine_edge_mask(coords.reshape(-1, 3), s, r, layout_mask, cut)
+    emptied = torch.tensor([1, cap + 5, B * cap - 1])
+    m &= ~torch.isin(r, emptied.to(torch.int32))
+    N, E = B * cap, B * ec
+    q, k = (torch.from_numpy(rng.normal(size=(N, F)).astype(np.float32))
+            for _ in range(2))
+    bias = torch.from_numpy(rng.normal(size=E).astype(np.float32))
+    vals = torch.from_numpy(rng.normal(size=(E, W)).astype(np.float32))
+    return q, k, bias, vals, s, r, m, layout_mask, cap, emptied
+
+
+class TestEdgeSoftmaxRefinedMask:
+    """K3 on an MD skin list refined to the true cutoff: holes inside
+    receivers' runs, and receivers whose every listed edge is masked."""
+
+    @pytest.mark.parametrize("layout", ["md", "every_pair"])
+    def test_kernel_models_match_the_plain_version(self, layout):
+        q, k, bias, vals, s, r, m, lay, cap, emptied = \
+            _refined_skin_problem(layout)
+        assert (m != lay).any() and (m & ~lay).sum() == 0
+        want = ref.edge_softmax_ref(q, k, bias, s, r, m, vals, q.shape[0])
+        got = chunked_softmax_model(q, k, bias, vals, s, r, m, cap,
+                                    layout_mask=lay)
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_array_equal(_np(got)[_np(emptied)], 0.0)
+        np.testing.assert_array_equal(_np(want)[_np(emptied)], 0.0)
+
+    @pytest.mark.parametrize("layout", ["md", "every_pair"])
+    def test_segments_come_from_the_layout(self, layout):
+        """Searched on the layout mask, node i's segment is exactly its
+        listed edges, the refined-away ones included."""
+        q, _, _, _, _, r, _, lay, cap, _ = _refined_skin_problem(layout)
+        recv, lay = _np(r), _np(lay)
+        ec = lay.shape[0] // (q.shape[0] // cap)
+        for node in range(0, recv.max() + 1, 7):
+            start, end, _ = segment_bounds_model(recv, lay, node, cap, ec)
+            listed = np.nonzero(lay & (recv == node))[0]
+            np.testing.assert_array_equal(np.arange(start, end), listed)
+
+    def test_wrapper_matches_jax_on_the_refined_mask(self):
+        """``ops.edge_softmax(layout_mask=...)`` (the plain version on CPU
+        tensors) against the JAX package's Pallas kernel in interpret
+        mode, which folds the mask into the bias and takes any mask."""
+        q, k, bias, vals, s, r, m, lay, cap, emptied = \
+            _refined_skin_problem("md", seed=1)
+        out = _np(ops.edge_softmax(q, k, bias, vals, s, r, m, cap=cap,
+                                   layout_mask=lay))
+        pallas = np.asarray(_j_edge_softmax(
+            *(jnp.asarray(_np(a)) for a in (q, k, bias, vals, s, r, m)),
+            cap=cap, use_kernel=True))
+        np.testing.assert_allclose(out, pallas, rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(out[_np(emptied)], 0.0)
 
 
 # --- activation quantization (K5) ---------------------------------------------

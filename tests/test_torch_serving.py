@@ -15,11 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.lee import random_rotations as j_random_rotations
 from repro.models import so3krates as jso3
 from repro.serving import QuantizedEngine as JEngine
 from repro.serving import ServeConfig as JServe
 from repro.serving import bucketing as jb
 from repro.serving import qparams as jqp
+from repro_torch.core import lee as tlee
 from repro_torch.guardrails import GuardrailConfig, GuardrailViolation
 from repro_torch.models import so3krates as tso3
 from repro_torch.serving import QuantizedEngine, ServeConfig
@@ -301,3 +303,73 @@ class TestEngine:
         with pytest.raises(NotImplementedError):
             QuantizedEngine.from_config(
                 TCFG, guardrails=GuardrailConfig(lee_probe_every=2), **kw)
+
+
+def _recording(engine):
+    """Wrap ``engine._infer_raw`` to keep every batch of graphs it is
+    given and its results."""
+    calls, raw = [], engine._infer_raw
+
+    def infer(graphs):
+        out = raw(graphs)
+        calls.append((graphs, out))
+        return out
+    engine._infer_raw = infer
+    return calls
+
+
+class TestLEE:
+    @pytest.mark.parametrize("mode", ["fp32", "w4a8"])
+    @pytest.mark.parametrize("path", ["dense", "sparse"])
+    def test_lee_matches_jax_under_the_same_rotations(self, params, mode,
+                                                      path):
+        """The JAX engine's ``lee_diagnostic(key)`` and the port's
+        ``lee_diagnostic(rotations=R)`` with R the JAX package's float32
+        rotations for that key: the rotated inputs are bit-identical, the
+        rotated forces agree under ``_assert_close``, and the LEE values
+        agree to 1e-4 of themselves in w4a8 (measured: ~1e-7), and in
+        fp32, where the LEE is float32 roundoff (~3e-8), to 1e-5 of the
+        largest |force|."""
+        jp, tp = params
+        key = jax.random.PRNGKey(3)
+        rots = np.asarray(j_random_rotations(key, 3))
+        assert rots.dtype == np.float32
+        jeng = JEngine.from_config(JCFG, params=jp,
+                                   serve=JServe(**_serve_kw(mode, path)))
+        teng = QuantizedEngine.from_config(
+            TCFG, params=tp, serve=ServeConfig(**_serve_kw(mode, path)),
+            device="cpu")
+        jcalls, tcalls = _recording(jeng), _recording(teng)
+        jl = jeng.lee_diagnostic(_graphs(), key, n_rotations=3)
+        tl = teng.lee_diagnostic(_graphs(), rotations=rots)
+        assert len(jcalls) == len(tcalls) == 4
+        for (jg, jr), (tg, tr) in zip(jcalls, tcalls):
+            for a, b in zip(tg, jg):
+                assert a.coords.dtype == b.coords.dtype == np.float32
+                np.testing.assert_array_equal(a.coords, b.coords)
+            _assert_close(np.concatenate([r.forces for r in tr]),
+                          np.concatenate([r.forces for r in jr]), mode,
+                          "rotated forces")
+        f_scale = max(float(np.abs(r.forces).max()) for r in tcalls[0][1])
+        for k in ("lee_mean", "lee_max"):
+            if mode == "fp32":
+                assert abs(tl[k] - jl[k]) <= 1e-5 * f_scale, k
+            else:
+                assert abs(tl[k] - jl[k]) <= 1e-4 * jl[k], k
+        assert (tl["n_rotations"], tl["n_graphs"]) == (3, len(_graphs()))
+
+    def test_rotations_are_float32_haar(self):
+        """``core.lee.random_rotations``: float32, orthonormal, det +1,
+        reproducible from the seed; ``lee`` of an equivariant map is 0."""
+        rots = tlee.random_rotations(0, 16)
+        assert rots.dtype == np.float32 and rots.shape == (16, 3, 3)
+        eye = np.einsum("nij,nkj->nik", rots, rots)
+        np.testing.assert_allclose(eye, np.broadcast_to(np.eye(3), eye.shape),
+                                   atol=1e-6)
+        np.testing.assert_allclose(np.linalg.det(rots), 1.0, atol=1e-6)
+        np.testing.assert_array_equal(rots, tlee.random_rotations(0, 16))
+        coords = torch.randn(5, 3)
+        R = torch.from_numpy(rots[0])
+        assert float(tlee.lee(lambda c: -2.0 * c, coords, R)) < 1e-5
+        assert float(tlee.lee(lambda c: c * torch.tensor([1.0, 0, 0]),
+                              coords, R)) > 1e-2
