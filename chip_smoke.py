@@ -65,6 +65,32 @@
    steps/s, ns/day, the
    device busy and idle share of a step, the select-rebuild's device
    time, the rebuilds and the drift rate (reported, not gated).
+6. Serves online SO3 traffic through ``repro_torch.server`` at the
+   paper's width (W4A8, MDDQ through the encode kernel, sparse path,
+   buckets 16 and 32, 1,024 edge slots per molecule). Packs the engine
+   into an artifact and loads it onto the card: every leaf byte for
+   byte, smaller than fp32, one version tag over two saves, the loaded
+   engine's results within 1e-6 of the source's (a larger gap is split
+   by ``split_gap`` before it fails). Then replays 400 Poisson requests
+   at 100 req/s (9-16 and 17-24 atoms, numpy seed 0) through
+   ``MicroBatchScheduler`` (8 per flush, 10 ms deadline) over the loaded
+   engine, with the guardrails marking and a LEE probe every 8th flush,
+   and the launch counts set to 0 just before and read just after.
+   Checks: every request resolves (no error, shed or non-finite flag),
+   one trace each, no new shape after warmup, the launches the dispatch
+   counts predict (16/25 f32-A matmuls, 3 K3 and 3 K4 per sparse/dense
+   batch, probes' re-runs included, and no other kernel), the probes =
+   flushes // 8, and 32 sampled requests within 1e-5 of direct
+   ``infer_batch([g])`` (a larger gap must come with moved A8 or MDDQ
+   codes on that request's rows: ``request_split``, also run once on a
+   known flush). The largest flush of each bucket runs again with every
+   kernel call held against its plain version on the inputs it was given
+   (f32-A matmuls and K4 codes bit for bit, K3 to 1e-5). Prints latency
+   percentiles, throughput, flush reasons and occupancy, the mean prep,
+   dispatch and sync per flush, the device busy and idle share of the
+   largest flush, and runs the serve CLI (``--workload so3 --server
+   --artifact``) once, counted: the artifact's sparse path and MDDQ
+   kernel carry over, so K1'/K2', K3 and K4 must launch.
 
 Phase 2 also holds the act-quant kernel bit for bit (float32 and bf16),
 its KV entry (the decode's whole int8 KV write) byte for byte over a
@@ -79,7 +105,9 @@ that. Needs one CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import faulthandler
 import json
 import statistics
 import subprocess
@@ -117,6 +145,15 @@ MD_RECORD_EVERY, MD_STEPS = 50, 1000
 # the capacity MDEngine.init_state sizes for this system (552 listed
 # edges x 1.3, clamped to the complete graph's 576, rounded to 128)
 MD_EDGE_CAPACITY = 640
+# the whole run's limit: the caller allows 1,200 s, builds included
+WATCHDOG_S = 1100
+# phase 6: Poisson traffic over two buckets through the scheduler; 100
+# req/s is 30-50% of the full-batch rate that phase 3's 22.6-37.9 ms per
+# 8-molecule batch allows
+SERVER_BUCKETS, SERVER_RATE, SERVER_REQUESTS = (16, 32), 100.0, 400
+# sampled requests held against direct single-molecule calls, to this
+# share of the largest |value| (a larger gap must come with moved codes)
+SERVER_SAMPLE, SERVER_TOL = 32, 1e-5
 TRUNK_W8 = (64, 192)         # wq | wk | wm
 TRUNK_W4 = (64, 32)          # wa | wb
 OTHER_W8 = {"w_upd": (64, 64), "w_vnorm": (16, 64), "ro_w1": (80, 64),
@@ -997,39 +1034,69 @@ def stage_times(torch, eng, graphs, reps: int = 5):
                                        for k, v in split.items()))
 
 
+@contextlib.contextmanager
+def recorded_codes(rows=None):
+    """Inside the block, each quantized product's A8 codes
+    (``act_quant_ref`` of its input, which the f32-A kernels quantize bit
+    for bit alike) and each MDDQ call's codes are appended to the yielded
+    lists ``(a8, mddq)``: ``a8`` one int8 tensor per product, ``mddq`` one
+    (direction, magnitude, nonzero) triple per call, flattened. ``rows``
+    maps an input (detached) to the part to record, or to None to skip
+    the call; None records whole inputs."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import act_quant_ref
+    pick = rows or (lambda t: t)
+    a8, mddq = [], []
+    saved = {k: getattr(ops, k) for k in ("matmul_w8a8", "matmul_w4a8",
+                                          "mddq_qdq_kernel")}
+
+    def rec_mm(fn):
+        def call(x, *args):
+            t = pick(x.detach())
+            if t is not None:
+                a8.append(act_quant_ref(t)[0].cpu())
+            return fn(x, *args)
+        return call
+
+    def rec_mddq(fn):
+        def call(v, mddq_cfg, codebook):
+            u = pick(v.detach())
+            if u is not None:
+                idx, mag = ops.mddq_encode(u, codebook,
+                                           mag_bits=mddq_cfg.magnitude_bits,
+                                           m_min=mddq_cfg.m_min,
+                                           m_max=mddq_cfg.m_max)
+                mddq.append(tuple(t.reshape(-1).cpu() for t in (
+                    idx, mag, (u ** 2).sum(-1) > 0)))
+            return fn(v, mddq_cfg, codebook)
+        return call
+    ops.matmul_w8a8 = rec_mm(saved["matmul_w8a8"])
+    ops.matmul_w4a8 = rec_mm(saved["matmul_w4a8"])
+    ops.mddq_qdq_kernel = rec_mddq(saved["mddq_qdq_kernel"])
+    try:
+        yield a8, mddq
+    finally:
+        for k, fn in saved.items():
+            setattr(ops, k, fn)
+
+
 def split_gap(serve_a, serve_b, label: str):
     """Where a w4a8 gap between two runs of one 8-molecule batch comes
     from: the gap with MDDQ off (A8 activations and W4/W8 weights still
     rounded), and per layer the MDDQ codes that differ between the runs,
     whose inputs differ only by summation orders. ``serve_a``/``serve_b``
-    take ServeConfig overrides and return the batch's results. The
-    serve-time quantizer is wrapped for one run of each so that each call
-    records the codes it finds. Returns the MDDQ-off (rel_e, rel_f) and
-    per layer (moved direction codes, moved magnitude codes, nonzero
-    vectors)."""
-    from repro_torch.kernels import ops
+    take ServeConfig overrides and return the batch's results. One run of
+    each records its codes (:func:`recorded_codes`). Returns the MDDQ-off
+    (rel_e, rel_f) and per layer (moved direction codes, moved magnitude
+    codes, nonzero vectors)."""
     rel_e, rel_f = max_rel(serve_a(quant_vectors=False),
                            serve_b(quant_vectors=False))
     print(f"  w4a8 with MDDQ off, {label}: energy {rel_e}, forces {rel_f}")
-
-    qdq, codes = ops.mddq_qdq_kernel, []
-
-    def recording(v, mddq_cfg, codebook):
-        idx, mag = ops.mddq_encode(v.detach(), codebook,
-                                   mag_bits=mddq_cfg.magnitude_bits,
-                                   m_min=mddq_cfg.m_min,
-                                   m_max=mddq_cfg.m_max)
-        nonzero = (v.detach() ** 2).sum(-1) > 0
-        codes[-1].append(tuple(t.reshape(-1).cpu()
-                               for t in (idx, mag, nonzero)))
-        return qdq(v, mddq_cfg, codebook)
-    ops.mddq_qdq_kernel = recording
-    try:
-        for serve in (serve_a, serve_b):
-            codes.append([])
+    codes = []
+    for serve in (serve_a, serve_b):
+        with recorded_codes() as (_, mddq):
             serve()
-    finally:
-        ops.mddq_qdq_kernel = qdq
+        codes.append(mddq)
     per_layer = []
     for (i_a, m_a, nz_a), (i_b, m_b, nz_b) in zip(*codes):
         nz = nz_a | nz_b
@@ -1503,23 +1570,11 @@ def md_a8_split(torch, engs, state, system, rel_e):
     replica whose energy differs by more than 1e-4 of the largest |e_pot|
     has a moved A8 code; and the first product with a moved code moves at
     most 0.5% of its codes (the near ties; later products inherit)."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import act_quant_ref
     from repro_torch.serving.forward import sparse_energy_and_forces
     species, _, mask, masses = system
     out = []
     for eng in engs:
-        codes, saved = [], {k: getattr(ops, k)
-                            for k in ("matmul_w8a8", "matmul_w4a8")}
-
-        def recording(fn):
-            def call(x, *args):
-                codes.append(act_quant_ref(x.detach())[0].cpu())
-                return fn(x, *args)
-            return call
-        for k, fn in saved.items():
-            setattr(ops, k, recording(fn))
-        try:
+        with recorded_codes() as (codes, _):
             sp_t, mask_t, _ = eng.device_inputs(species, mask, masses)
             nl = [t.to(eng.device) for t in (state.nlist.senders,
                                              state.nlist.receivers,
@@ -1527,9 +1582,6 @@ def md_a8_split(torch, engs, state, system, rel_e):
             e, _ = sparse_energy_and_forces(
                 eng.qparams, eng.model_cfg, sp_t, state.coords.to(eng.device),
                 mask_t, *nl, quant_vectors=False, refine_cutoff=True)
-        finally:
-            for k, fn in saved.items():
-                setattr(ops, k, fn)
         out.append((e.cpu().numpy(), codes))
     (e_card, c_card), (e_cpu, c_cpu) = out
     gap = np.abs(e_card - e_cpu) / np.abs(e_cpu).max()
@@ -1551,6 +1603,372 @@ def md_a8_split(torch, engs, state, system, rel_e):
                 f"{c_cpu[i].numel()} moved in product {i}")
 
 
+# --- phase 6: the online SO3 server -----------------------------------------
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _leaves_equal(torch, a, b) -> bool:
+    """Two serving-format trees hold the same tensors, byte for byte."""
+    from repro_torch.serving.qparams import QTensor
+    if set(a) != set(b):
+        return False
+    for name, v in a.items():
+        w = b[name]
+        if isinstance(v, QTensor):
+            pairs = [(v.data, w.data)] + (
+                [(v.scale, w.scale)] if v.scale is not None else [])
+        else:
+            pairs = [(v, w)]
+        if not all(x.dtype == y.dtype and torch.equal(x, y)
+                   for x, y in pairs):
+            return False
+    return True
+
+
+def request_split(torch, eng, flush_graphs, i):
+    """Where a gap between a request served in its flush and the same
+    molecule served alone comes from: both runs with each quantized
+    product's A8 codes (``act_quant_ref`` of its input) and each MDDQ
+    call's direction and magnitude codes recorded on the request's own
+    rows only (:func:`recorded_codes`). Requires both runs to make the
+    same products and MDDQ calls. Returns (A8 codes moved per product,
+    MDDQ codes moved per call)."""
+    from repro_torch.serving import plan_batches
+    g = flush_graphs[i]
+    plan = plan_batches(flush_graphs, eng.serve.buckets())[0]
+    cap, n = plan.bucket.capacity, g.n_atoms
+    runs = []
+    for graphs, row in ((flush_graphs, plan.graph_indices.index(i)), ([g], 0)):
+        def rows(t):
+            if t.dim() == 2:      # a product's input: per-atom rows only
+                return (None if t.shape[0] % cap
+                        else t.reshape(-1, cap, t.shape[-1])[row, :n])
+            return t.reshape(-1, cap, *t.shape[-2:])[row, :n]
+        with recorded_codes(rows) as run:
+            eng._infer_raw(graphs)
+        runs.append(run)
+    (a8_f, md_f), (a8_s, md_s) = runs
+    require(len(a8_f) == len(a8_s) and len(md_f) == len(md_s),
+            f"request {i}: the flush made {len(a8_f)} products and "
+            f"{len(md_f)} MDDQ calls, the single molecule {len(a8_s)} and "
+            f"{len(md_s)}")
+    moved_a8 = [int((x != y).sum()) for x, y in zip(a8_f, a8_s)]
+    moved_mddq = [int(((x[0] != y[0]) | (x[1] != y[1])).sum())
+                  for x, y in zip(md_f, md_s)]
+    return moved_a8, moved_mddq
+
+
+def check_flush_kernels(torch, eng, graphs, label):
+    """Every kernel call of one flush (``eng.infer_batch(graphs)``, run
+    again) held against its plain version on the inputs it was given, as
+    phase 2 holds them: the f32-A matmuls bit for bit against
+    ``act_quant_ref`` and the plain matmul, K3 to 1e-5 with empty
+    receivers exactly 0, K4's codes identical. Returns {kernel: (max
+    error, shapes seen)}."""
+    from repro_torch.kernels import ops, ref
+    names = ("w8a8_matmul_f32a", "w4a8_matmul_f32a", "edge_softmax_fused",
+             "mddq_encode_kernel")
+    saved = {k: getattr(ops, k) for k in names}
+    calls = []
+
+    def recording(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append((name, [a.detach().clone() if torch.is_tensor(a)
+                                 else a for a in args], kw,
+                          tuple(t.detach().clone() for t in out)
+                          if isinstance(out, tuple) else out.detach().clone()))
+            return out
+        return call
+    for k, fn in saved.items():
+        setattr(ops, k, recording(k, fn))
+    try:
+        eng.infer_batch(graphs)
+    finally:
+        for k, fn in saved.items():
+            setattr(ops, k, fn)
+    seen = {}
+    for name, args, kw, got in calls:
+        if name.endswith("f32a"):
+            x, w, w_s = args
+            plain = ref.w4a8_matmul_ref if name.startswith("w4") \
+                else ref.w8a8_matmul_ref
+            want = plain(*ref.act_quant_ref(x), w, w_s)
+            err = float((got - want).abs().max())
+            ok = torch.equal(got, want)
+            shape = f"M={x.shape[0]} K={x.shape[1]} N={want.shape[1]}"
+        elif name == "edge_softmax_fused":
+            q, k, bias, vals, s, r, m = args[:7]
+            want = ref.edge_softmax_ref(q, k, bias, s, r, m, vals, q.shape[0])
+            err = float((got - want).abs().max())
+            has_edge = torch.zeros(q.shape[0], dtype=torch.bool,
+                                   device=q.device)
+            has_edge[r[m].long()] = True
+            ok = torch.allclose(got, want, rtol=1e-5, atol=1e-5) \
+                and bool((got[~has_edge] == 0).all())
+            shape = f"N={q.shape[0]} E={s.shape[0]} real={int(m.sum())}"
+        else:
+            v, cb = args
+            want = ref.mddq_encode_ref(v, cb, **kw)
+            err = float(max((a - b).abs().max() for a, b in zip(got, want)))
+            ok = all(torch.equal(a, b) for a, b in zip(got, want))
+            shape = f"N={v.shape[0]} C={cb.shape[0]}"
+        require(ok, f"{label}: {name} at {shape} differs from its plain "
+                    f"version by {err}")
+        e0, shapes = seen.get(name, (0.0, []))
+        seen[name] = (max(e0, err), shapes + [shape] * (shape not in shapes))
+    print(f"  {label}: {len(calls)} kernel calls held against their plain "
+          "versions: " + "; ".join(
+              f"{k} max_abs_err {e} at {', '.join(sh)}"
+              for k, (e, sh) in seen.items()))
+    return seen
+
+
+def run_server(torch, dev, cfg, graphs):
+    """The online SO3 server: a packed artifact's round trip onto the
+    card, then Poisson traffic through ``MicroBatchScheduler`` over the
+    loaded engine, counted; its gates; the CLI once."""
+    import tempfile
+    from repro_torch.guardrails import GuardrailConfig
+    from repro_torch.launch import serve as cli
+    from repro_torch.obs import REGISTRY, TRACER, configure_tracing
+    from repro_torch.server import (MicroBatchScheduler, SchedulerConfig,
+                                    SizeClass, TrafficConfig, load_artifact,
+                                    load_engine, make_traffic, run_open_loop,
+                                    save_artifact)
+    from repro_torch.serving import QuantizedEngine, ServeConfig
+    serve = ServeConfig(mode="w4a8", bucket_sizes=SERVER_BUCKETS,
+                        max_batch=8, edge_capacity=1024, path="sparse",
+                        mddq_kernel=True)
+    t0 = time.perf_counter()
+    src = QuantizedEngine.from_config(cfg, serve=serve, seed=0, device=dev)
+    _sync(torch, dev)
+    from_config_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "so3_w4a8.npz")
+        file_bytes = save_artifact(path, src)
+        t0 = time.perf_counter()
+        eng = load_engine(path, device=dev)
+        _sync(torch, dev)
+        load_s = time.perf_counter() - t0
+        tag = load_artifact(path).version_tag
+        save_artifact(str(Path(tmp) / "again.npz"), eng)
+        again = load_artifact(str(Path(tmp) / "again.npz")).version_tag
+        fp32 = src.memory_report()["fp32_bytes"]
+        print(f"  artifact: {file_bytes} B on disk against {fp32} B of "
+              f"fp32 weights ({fp32 / file_bytes:.2f}x), tag {tag}; "
+              f"load_engine {load_s:.3f} s against from_config (numpy init "
+              f"and quantization) {from_config_s:.3f} s")
+        require(_leaves_equal(torch, src.qparams, eng.qparams),
+                "the loaded artifact's leaves differ from the source's")
+        require(all((v.data if hasattr(v, "kind") else v).device == dev
+                    for v in eng.qparams.values()),
+                "a loaded leaf is not on the engine's device")
+        require(file_bytes < fp32, f"artifact {file_bytes} B >= fp32 {fp32}")
+        require(again == tag == eng.artifact_version,
+                f"version tags {tag}, {again}, {eng.artifact_version}")
+        rel_e, rel_f = max_rel(eng.infer_batch(graphs),
+                               src.infer_batch(graphs))
+        print(f"  loaded vs source engine, {len(graphs)} molecules (rel. to "
+              f"the largest |value|): energy {rel_e}, forces {rel_f}")
+        if max(rel_e, rel_f) > 1e-6:
+            def serve_with(qp):
+                return lambda **kw: QuantizedEngine.from_quantized(
+                    cfg, qp, dataclasses.replace(serve, **kw),
+                    device=dev).infer_batch(graphs[:8])
+            split_gap(serve_with(eng.qparams), serve_with(src.qparams),
+                      "loaded vs source")
+        require(rel_e <= 1e-6 and rel_f <= 1e-6,
+                f"the loaded engine differs from the source: {rel_e}, "
+                f"{rel_f}")
+
+        eng.guardrails = GuardrailConfig(check_finite=True,
+                                         lee_probe_every=8, on_flag="mark")
+        traffic = make_traffic(TrafficConfig(
+            rate_rps=SERVER_RATE, n_requests=SERVER_REQUESTS, seed=0,
+            size_mix=(SizeClass(9, 16, 0.5), SizeClass(17, 24, 0.5))))
+        sched = MicroBatchScheduler(eng, SchedulerConfig(max_batch=8,
+                                                         deadline_ms=10.0))
+        print(f"  scheduler warmup {sched.warmup_s:.3f} s over "
+              f"{len(eng.warmup_report)} (bucket, batch, path) shapes")
+        shapes = set(eng.shapes_seen)
+        eng.reset_stats()
+        n0 = eng._n_infer_calls
+        handles = []
+
+        class Recording:
+            """The scheduler, keeping every handle it gives out."""
+            stats = sched.stats
+
+            def submit(self, g):
+                handles.append(sched.submit(g))
+                return handles[-1]
+        configure_tracing(enabled=True)
+        TRACER.reset()
+        try:
+            res, launches = counted_run(lambda: run_open_loop(
+                Recording(), traffic, rate_rps=SERVER_RATE,
+                result_timeout=60))
+        finally:
+            sched.close()
+            configure_tracing(enabled=False)
+        stats = sched.stats()
+        flushes = list(sched._flushes)
+        traces = TRACER.drain()
+        dispatch, guard = eng.stats_snapshot(), eng.guard_snapshot()
+        n_calls = eng._n_infer_calls - n0
+        s = res.summary()
+        print(f"  replay: {s['n_requests']} requests at {SERVER_RATE:.0f} "
+              f"req/s offered: p50 {s['p50_ms']:.3f} ms, p95 "
+              f"{s['p95_ms']:.3f}, p99 {s['p99_ms']:.3f}, max "
+              f"{s['max_ms']:.3f}; {s['throughput_rps']:.2f} req/s over "
+              f"{s['span_s']:.3f} s; shed {res.n_shed}")
+        print(f"  flushes {stats['n_flushes']}: reasons "
+              f"{stats['flush_reasons']}, mean batch {stats['mean_batch']:.3f} "
+              f"(per bucket {stats['mean_batch_per_bucket']}), max queue "
+              f"depth {stats['max_queue_depth']}; per flush (mean, ms): "
+              f"service {statistics.mean(f.service_s for f in flushes) * 1e3:.3f}, "
+              f"prep {statistics.mean(f.prep_s for f in flushes) * 1e3:.3f}, "
+              f"dispatch {statistics.mean(f.dispatch_s for f in flushes) * 1e3:.3f}, "
+              f"sync {statistics.mean(f.sync_s for f in flushes) * 1e3:.3f}, "
+              f"queue wait {statistics.mean(f.wait_s for f in flushes) * 1e3:.3f}")
+        print(f"  dispatch {dispatch}; guard {guard}; launches {launches}")
+        print(f"  LEE probes {guard['lee_probes']} over {n_calls} flushes; "
+              f"engine_lee_probe_level "
+              f"{REGISTRY.gauge('engine_lee_probe_level', mode='w4a8').value}")
+        require(s["n_requests"] == SERVER_REQUESTS and res.n_shed == 0,
+                f"{s['n_requests']} of {SERVER_REQUESTS} resolved, "
+                f"{res.n_shed} shed")
+        require(stats["n_completed"] == SERVER_REQUESTS
+                and guard["flagged_nonfinite"] == 0,
+                f"completed {stats['n_completed']}, guard {guard}")
+        require(len(traces) == SERVER_REQUESTS
+                and all(t["status"] == "ok" for t in traces),
+                f"{len(traces)} traces for {SERVER_REQUESTS} requests")
+        require(eng.shapes_seen == shapes,
+                f"new shapes under traffic: {eng.shapes_seen - shapes}")
+        require(n_calls == stats["n_flushes"],
+                f"{n_calls} guarded calls for {stats['n_flushes']} flushes")
+        require(guard["lee_probes"] == (n0 + n_calls) // 8 - n0 // 8,
+                f"{guard['lee_probes']} LEE probes over calls {n0}.."
+                f"{n0 + n_calls}")
+        # per layer 5 quantized products sparse and 8 dense, the readout's
+        # one, a K3 per sparse layer and a K4 per layer: 16/25, 3, 3 at
+        # 3 layers; the LEE probes' re-runs are dispatches too
+        sparse, dense, n_layers = (dispatch["sparse"], dispatch["dense"],
+                                   cfg.n_layers)
+        predicted = {"f32a_matmuls": (5 * n_layers + 1) * sparse
+                     + (8 * n_layers + 1) * dense,
+                     "edge_softmax_fused": n_layers * sparse,
+                     "mddq_encode_kernel": n_layers * (sparse + dense)}
+        fused = launches["w8a8_matmul_f32a"] + launches["w4a8_matmul_f32a"]
+        require(fused == predicted["f32a_matmuls"]
+                == launches["quantized_products"],
+                f"{fused} f32-A matmul launches for "
+                f"{launches['quantized_products']} quantized products, "
+                f"predicted {predicted}")
+        for name in ("edge_softmax_fused", "mddq_encode_kernel"):
+            require(launches[name] == predicted[name],
+                    f"{name}: {launches[name]} launches, predicted "
+                    f"{predicted[name]}")
+        for name in ("mddq_encode_full_search", "act_quant", "w8a8_matmul",
+                     "w4a8_matmul", "kv_append_int8",
+                     "decode_attention_int8kv"):
+            require(launches[name] == 0, f"{name} ran in the server replay")
+
+        # a sample of the replay against direct single-molecule calls
+        eng.guardrails = GuardrailConfig()
+        by_trace = {h.trace.trace_id: h for h in handles}
+        flush_of = {tid: [by_trace[t] for t in f.trace_ids]
+                    for f in flushes for tid in f.trace_ids}
+        pick = np.random.default_rng(0).choice(len(handles), SERVER_SAMPLE,
+                                               replace=False)
+        served = [handles[i].result(timeout=0) for i in pick]
+        direct = [eng.infer_batch([handles[i].graph])[0] for i in pick]
+        rel_e, rel_f = max_rel(served, direct)
+        print(f"  {SERVER_SAMPLE} sampled requests vs direct infer_batch([g]) "
+              f"(rel. to the largest |value|): energy {rel_e}, forces {rel_f}")
+        e_scale = max(abs(d.energy) for d in direct)
+        f_scale = max(float(np.abs(d.forces).max()) for d in direct)
+        for i, a, b in zip(pick, served, direct):
+            gap = max(abs(a.energy - b.energy) / e_scale,
+                      float(np.abs(a.forces - b.forces).max()) / f_scale)
+            if gap <= SERVER_TOL:
+                continue
+            peers = flush_of[handles[i].trace.trace_id]
+            moved_a8, moved_mddq = request_split(
+                torch, eng, [h.graph for h in peers], peers.index(handles[i]))
+            print(f"  request {i} ({handles[i].graph.n_atoms} atoms, flush "
+                  f"of {len(peers)}): gap {gap}; A8 codes moved per product "
+                  f"{moved_a8}, MDDQ codes per call {moved_mddq}")
+            require(sum(moved_a8) + sum(moved_mddq) > 0,
+                    f"request {i}: gap {gap} with no A8 or MDDQ code moved")
+
+        # the kernels at this path's own shapes: the largest flush of each
+        # bucket again, every kernel call held against its plain version
+        largest = {}
+        for f in flushes:
+            if len(f.trace_ids) > len(largest.get(f.capacity, ())):
+                largest[f.capacity] = f.trace_ids
+        require(sorted(largest) == sorted(SERVER_BUCKETS),
+                f"flushes in buckets {sorted(largest)} only")
+        held = {}
+        for cap_b, tids in sorted(largest.items()):
+            seen = check_flush_kernels(
+                torch, eng, [by_trace[t].graph for t in tids],
+                f"largest flush of bucket {cap_b} ({len(tids)} molecules)")
+            for name, (err, shapes) in seen.items():
+                e0, sh0 = held.get(name, (0.0, []))
+                held[name] = (max(e0, err), sh0 + shapes)
+        require(set(held) == set(SO3_KERNELS),
+                f"the largest flushes ran {sorted(held)}")
+
+        # the sampled gate's explanation path, run once on a known flush
+        peers = [by_trace[t] for t in largest[max(largest)]]
+        moved_a8, moved_mddq = request_split(
+            torch, eng, [h.graph for h in peers], 0)
+        print(f"  request split of the first request of that flush: A8 codes "
+              f"moved per product {moved_a8}, MDDQ codes per call "
+              f"{moved_mddq}")
+        # 5 quantized products per layer sparse, 8 dense, and the readout's
+        require(len(moved_a8) in (5 * cfg.n_layers + 1, 8 * cfg.n_layers + 1)
+                and len(moved_mddq) == cfg.n_layers,
+                f"request split recorded {len(moved_a8)} products and "
+                f"{len(moved_mddq)} MDDQ calls")
+
+        # the device's share of one flush: the largest of the replay
+        flush_graphs = [h.graph for h in max(flush_of.values(), key=len)]
+        if dev.type == "cuda":
+            print(f"  one flush of {len(flush_graphs)} molecules of "
+                  f"{min(g.n_atoms for g in flush_graphs)}-"
+                  f"{max(g.n_atoms for g in flush_graphs)} atoms:")
+            profile_batch(torch, eng, flush_graphs)
+
+        argv = ["--workload", "so3", "--server", "--artifact", path,
+                "--requests", "64", "--rate", "50", "--buckets", "16", "32",
+                "--max-batch", "8"]
+        if dev.type != "cuda":
+            argv += ["--device", str(dev)]
+        try:
+            _, cli_launches = counted_run(lambda: cli.main(argv))
+        except SystemExit as exc:
+            raise SmokeFailure(f"the serve CLI exited with {exc.code}")
+        # the artifact's serving knobs (sparse path, MDDQ kernel, edge
+        # capacity) carry over to the CLI's engine
+        print(f"  CLI launches {cli_launches}")
+        fused = (cli_launches["w8a8_matmul_f32a"]
+                 + cli_launches["w4a8_matmul_f32a"])
+        require(fused == cli_launches["quantized_products"] > 0
+                and cli_launches["edge_softmax_fused"] > 0
+                and cli_launches["mddq_encode_kernel"] > 0,
+                f"the CLI's replay did not run the sparse path's kernels: "
+                f"{cli_launches}")
+    return launches, held
+
+
 def main() -> int:
     src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch").is_dir():
@@ -1562,6 +1980,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
+    # a hang anywhere (a lost worker thread, a stuck launch) ends the run
+    # with every thread's stack, inside the caller's time limit
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     sys.path.insert(0, str(src))
     from repro_torch.kernels import _build
     from repro_torch.models.so3krates import So3kratesConfig
@@ -1611,9 +2032,20 @@ def main() -> int:
     print("phase 5: MDEngine, paper config, w4a8, MDDQ kernel, "
           f"{MD_REPLICAS} replicas x {MD_ATOMS} atoms")
     md = run_md(torch, dev, cfg)
+    print("phase 6: the online SO3 server, paper config, w4a8, MDDQ kernel, "
+          f"buckets {SERVER_BUCKETS}, {SERVER_REQUESTS} requests at "
+          f"{SERVER_RATE:.0f} req/s")
+    t0 = time.perf_counter()
+    server, held = run_server(torch, dev, cfg, graphs)
+    print(f"  phase 6 took {time.perf_counter() - t0:.1f} s")
     for row in rows:
+        if row["name"] in held:
+            err, shapes = held[row["name"]]
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["so3_server_shapes"] = shapes
         by_path = {"so3_sparse": so3[row["name"]],
-                   "lm_decode": lm[row["name"]], "md": md[row["name"]]}
+                   "lm_decode": lm[row["name"]], "md": md[row["name"]],
+                   "so3_server": server[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     require("jax" not in sys.modules and "repro" not in sys.modules,

@@ -28,7 +28,10 @@ def disable_tf32() -> None:
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` -> the current CUDA device, or raise when there is none;
-    an explicit device is taken as given (a CUDA one must exist)."""
+    an explicit device is taken as given (a CUDA one must exist), and
+    ``"cuda"`` with no index means the current CUDA device, so every
+    resolved CUDA device has an index (``torch.cuda.set_device`` and
+    tensor-device comparisons need one)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -36,6 +39,10 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "port's plain PyTorch path on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {dev} requested but CUDA is unavailable")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

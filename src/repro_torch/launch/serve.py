@@ -1,5 +1,6 @@
-"""Quantized LM decode serving: counterpart of ``run_lm`` in
-``repro/launch/serve.py``.
+"""Quantized serving launcher: counterpart of ``repro/launch/serve.py``.
+
+LM decode (``--workload lm``):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
         --arch qwen2-0.5b --quant serve_w8a8 --kv-quant --tokens 64 \\
@@ -13,8 +14,24 @@ allocates the KV cache and runs a greedy decode loop from token 0 at
 position 0, then prints the weight bytes (float32 -> served), the
 KV-cache bytes and the decode rate, as the JAX launcher does. The
 ``--smoke`` configs run in float32, the full ones in ``cfg.dtype``
-(bf16). The SO3 workload's CLI (``--workload so3``) is not ported yet:
-serve molecules through ``repro_torch.serving.QuantizedEngine``.
+(bf16).
+
+SO(3) force-field inference through ``serving.QuantizedEngine``
+(``--workload so3``): one shot, a stream of molecules through
+``infer_batch``, or with ``--server`` Poisson traffic through the
+micro-batching scheduler (``server.MicroBatchScheduler``), with latency
+percentiles, flush reasons and dispatch counts:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload so3 \\
+        --server --rate 50 --requests 200 --buckets 16 32 --max-batch 8 \\
+        [--artifact model.npz]       # cold start from a packed artifact
+
+``--save-artifact path.npz`` packs the engine's quantized weights (the
+JAX package's format: either package loads the other's files);
+``--guardrails`` withholds non-finite results with a typed error. The
+cluster, precision-tier, hot-swap, MD-session, watchdog and obs-export
+flags of the JAX launcher are not ported yet (ROADMAP.md): they exit
+with an error.
 """
 from __future__ import annotations
 
@@ -27,12 +44,26 @@ import torch
 
 from repro_torch import configs
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.guardrails import GuardrailConfig
 from repro_torch.models.lm import transformer as tfm
 from repro_torch.models.lm.config import LMConfig
+from repro_torch.models.so3krates import So3kratesConfig
 from repro_torch.quant.apply import quantize_params_tree, quantized_bytes
+from repro_torch.server import (MicroBatchScheduler, SchedulerConfig,
+                                SizeClass, TrafficConfig, load_artifact,
+                                load_engine, make_traffic, run_open_loop,
+                                save_artifact)
+from repro_torch.serving import QuantizedEngine, ServeConfig, random_graphs
 
 __all__ = ["ServedLM", "DecodeRun", "lm_config", "build_lm", "decode",
-           "greedy_decode", "run_lm", "main"]
+           "greedy_decode", "run_lm", "run_so3", "run_so3_server", "main"]
+
+# JAX launcher flags whose subsystems the port does not have yet, with the
+# value that means "off"
+UNPORTED = {"replicas": 1, "tiers": None, "swap_artifact": None,
+            "md_session": 0, "stall_timeout": None, "metrics_out": None,
+            "trace_out": None, "alerts_out": None, "export_interval": None,
+            "health_interval": None}
 
 
 @dataclasses.dataclass
@@ -135,6 +166,130 @@ def run_lm(args) -> DecodeRun:
     return run
 
 
+# the serving knobs the so3 flags set when not given (an artifact keeps
+# its own instead)
+SO3_SERVE_DEFAULTS = {"bucket_sizes": (16, 32, 64), "max_batch": 32,
+                      "path": "auto"}
+
+
+def _serve_overrides(args) -> dict:
+    given = {"bucket_sizes": tuple(args.buckets) if args.buckets else None,
+             "max_batch": args.max_batch, "path": args.path}
+    return {k: v for k, v in given.items() if v is not None}
+
+
+def run_so3(args) -> None:
+    """The SO3 workload: build (or cold-start) the engine, then one shot
+    through ``infer_batch`` or, with ``--server``, the online replay."""
+    if args.artifact:
+        # the mode is baked into the packed weights: it comes from the
+        # artifact unless asked for, and a mismatch is an error
+        # (so do its path, MDDQ kernel and edge capacity; the bucket
+        # ladder, max_batch and path flags override only when given)
+        t0 = time.monotonic()
+        serve = dataclasses.replace(load_artifact(args.artifact).serve,
+                                    **_serve_overrides(args))
+        if args.mode:
+            serve = dataclasses.replace(serve, mode=args.mode)
+        engine = load_engine(args.artifact, serve=serve, device=args.device)
+        print(f"cold start from {args.artifact} in "
+              f"{time.monotonic() - t0:.2f}s "
+              "(packed weights, no quantization pass)")
+    else:
+        serve = ServeConfig(mode=args.mode or "w8a8",
+                            **dict(SO3_SERVE_DEFAULTS,
+                                   **_serve_overrides(args)))
+        model_cfg = So3kratesConfig(feat=args.feat, vec_feat=args.vec_feat,
+                                    n_layers=args.layers, n_rbf=8,
+                                    dir_bits=args.dir_bits)
+        engine = QuantizedEngine.from_config(model_cfg, serve=serve,
+                                             seed=args.seed,
+                                             device=args.device)
+    if args.guardrails:
+        engine.guardrails = GuardrailConfig(check_finite=True)
+        print("guardrails: non-finite results are withheld with a typed "
+              "GuardrailViolation")
+    if args.save_artifact:
+        nbytes = save_artifact(args.save_artifact, engine)
+        print(f"packed artifact -> {args.save_artifact} "
+              f"({nbytes / 1e3:.1f} KB)")
+
+    mem = engine.memory_report()
+    print(f"workload=so3 mode={engine.serve.mode} device={engine.device}")
+    print(f"weights: fp32 {mem['fp32_bytes'] / 1e3:.1f} KB -> served "
+          f"{mem['served_bytes'] / 1e3:.1f} KB ({mem['compression_x']}x)")
+    if args.server:
+        run_so3_server(engine, args)
+        return
+
+    graphs = random_graphs(args.graphs, args.min_atoms, args.max_atoms,
+                           engine.model_cfg.n_species, seed=args.seed,
+                           density=args.density)
+    # run the traffic's shape classes once, so the timed pass below
+    # measures steady state, not the kernels' build
+    t0 = time.monotonic()
+    engine.infer_batch(graphs)
+    print(f"warmup: ran {len(engine.shapes_seen)} shape class(es) in "
+          f"{time.monotonic() - t0:.2f}s")
+    t0 = time.monotonic()
+    results = engine.infer_batch(graphs)
+    dt = time.monotonic() - t0
+    print(f"infer_batch: {len(graphs)} molecules "
+          f"({args.min_atoms}-{args.max_atoms} atoms) in {dt:.2f}s "
+          f"-> {len(graphs) / dt:.1f} mol/s, buckets used "
+          f"{sorted({r.bucket_capacity for r in results})}, paths "
+          f"{sorted({r.path for r in results})} "
+          f"(dispatch {engine.dispatch_stats})")
+    if args.lee:
+        diag = engine.lee_diagnostic(graphs[:4], seed=1, n_rotations=2)
+        print(f"served-model LEE: mean {diag['lee_mean']:.2e} "
+              f"max {diag['lee_max']:.2e} (padding masked)")
+
+
+def run_so3_server(engine: QuantizedEngine, args):
+    """Poisson traffic through the micro-batching scheduler: latency
+    percentiles, flush reasons and dispatch counts. Returns the
+    replay's ``TrafficResult``."""
+    mid = (args.min_atoms + args.max_atoms) // 2
+    if mid + 1 > args.max_atoms:      # degenerate range: one size class
+        size_mix = (SizeClass(args.min_atoms, args.max_atoms, 1.0),)
+    else:
+        size_mix = (SizeClass(args.min_atoms, mid, 0.5),
+                    SizeClass(mid + 1, args.max_atoms, 0.5))
+    traffic = make_traffic(TrafficConfig(
+        rate_rps=args.rate, n_requests=args.requests, size_mix=size_mix,
+        n_species=engine.model_cfg.n_species, density=args.density,
+        seed=args.seed))
+    max_batch = min(args.sched_batch, engine.serve.max_batch)
+    sched_cfg = SchedulerConfig(max_batch=max_batch,
+                                deadline_ms=args.deadline_ms,
+                                max_queue=args.max_queue)
+    with MicroBatchScheduler(engine, sched_cfg) as sched:
+        print(f"warmup: {sched.warmup_s:.2f}s "
+              f"({len(engine.shapes_seen)} shape classes)")
+        engine.reset_stats()    # keep the streaming phase unpolluted
+        res = run_open_loop(sched, traffic, rate_rps=args.rate)
+        stats = sched.stats()
+    _print_server_summary(res, stats, args, max_batch)
+    return res
+
+
+def _print_server_summary(res, stats, args, max_batch) -> None:
+    s = res.summary()
+    print(f"open loop: {args.requests} requests at {args.rate:.1f} req/s "
+          f"offered ({args.min_atoms}-{args.max_atoms} atoms, "
+          f"deadline {args.deadline_ms:.0f} ms, "
+          f"micro-batch <= {max_batch})")
+    print(f"latency: p50 {s['p50_ms']:.1f} ms  p95 {s['p95_ms']:.1f} ms  "
+          f"p99 {s['p99_ms']:.1f} ms  max {s['max_ms']:.1f} ms")
+    print(f"throughput: {s['throughput_rps']:.1f} req/s over "
+          f"{s['span_s']:.1f}s span")
+    print(f"batching: {stats['n_flushes']} flushes, mean batch "
+          f"{stats['mean_batch']:.2f}, reasons {stats['flush_reasons']}, "
+          f"max queue depth {stats['max_queue_depth']}")
+    print(f"dispatch: {stats['engine_dispatch']}")
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", default="lm", choices=["lm", "so3"])
@@ -146,6 +301,68 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=128)
     ap.add_argument("--tokens", type=int, default=32)
+    # so3 options (the JAX launcher's)
+    ap.add_argument("--mode", default=None, choices=["fp32", "w8a8", "w4a8"],
+                    help="serving mode (default: w8a8, or the artifact's "
+                         "own mode when --artifact is given)")
+    ap.add_argument("--graphs", type=int, default=16)
+    ap.add_argument("--min-atoms", type=int, default=6)
+    ap.add_argument("--max-atoms", type=int, default=32)
+    ap.add_argument("--buckets", type=int, nargs="+", default=None,
+                    help="bucket ladder (default: 16 32 64, or the "
+                         "artifact's own with --artifact)")
+    ap.add_argument("--max-batch", type=int, default=None,
+                    help="molecules per batch (default: 32, or the "
+                         "artifact's own with --artifact)")
+    ap.add_argument("--feat", type=int, default=32)
+    ap.add_argument("--vec-feat", type=int, default=8)
+    ap.add_argument("--layers", type=int, default=2)
+    ap.add_argument("--dir-bits", type=int, default=8)
+    ap.add_argument("--path", default=None,
+                    choices=["dense", "sparse", "auto"],
+                    help="so3 execution path: dense O(n^2), or the sparse "
+                         "O(E) edge list (sparse/auto; a batch that "
+                         "overflows its edge capacity runs dense; default: "
+                         "auto, or the artifact's own with --artifact)")
+    ap.add_argument("--density", type=float, default=None,
+                    help="atoms per cubic Angstrom for the random graphs "
+                         "(None = dense cloud)")
+    ap.add_argument("--lee", action="store_true",
+                    help="also report the served model's LEE diagnostic")
+    ap.add_argument("--server", action="store_true",
+                    help="stream Poisson traffic through the micro-batching "
+                         "scheduler and report latency percentiles")
+    ap.add_argument("--rate", type=float, default=20.0,
+                    help="offered load in requests/s (--server)")
+    ap.add_argument("--requests", type=int, default=200,
+                    help="number of requests to stream (--server)")
+    ap.add_argument("--deadline-ms", type=float, default=25.0,
+                    help="micro-batching deadline (--server)")
+    ap.add_argument("--sched-batch", type=int, default=8,
+                    help="scheduler micro-batch flush size (--server)")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bounded admission: shed requests beyond this "
+                         "many queued (--server)")
+    ap.add_argument("--guardrails", action="store_true",
+                    help="withhold non-finite energies/forces with a typed "
+                         "error instead of delivering them")
+    ap.add_argument("--artifact",
+                    help="cold-start the engine from a packed quantized "
+                         "artifact (.npz) instead of quantizing fp32")
+    ap.add_argument("--save-artifact",
+                    help="pack the engine's quantized weights to this .npz "
+                         "and continue")
+    # the JAX launcher's cluster and obs flags: not ported yet
+    ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--tiers")
+    ap.add_argument("--swap-artifact")
+    ap.add_argument("--md-session", type=int, default=0)
+    ap.add_argument("--stall-timeout", type=float)
+    ap.add_argument("--metrics-out")
+    ap.add_argument("--trace-out")
+    ap.add_argument("--alerts-out")
+    ap.add_argument("--export-interval", type=float)
+    ap.add_argument("--health-interval", type=float)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu, which runs every kernel's "
@@ -156,9 +373,14 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     ap = parser()
     args = ap.parse_args(argv)
+    for name, off in UNPORTED.items():
+        if getattr(args, name) != off:
+            ap.error(f"--{name.replace('_', '-')} is not ported yet: the "
+                     "port has no cluster, session or obs-export layer "
+                     "(see ROADMAP.md)")
     if args.workload == "so3":
-        ap.error("--workload so3 is not ported to this CLI yet: serve "
-                 "molecules through repro_torch.serving.QuantizedEngine")
+        run_so3(args)
+        return
     if not args.arch:
         ap.error("--workload lm requires --arch")
     run_lm(args)

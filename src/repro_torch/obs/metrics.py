@@ -12,9 +12,10 @@ dashboard reads either. Three instrument kinds:
 
 All instruments are thread-safe. ``REGISTRY.set_enabled(False)`` turns
 every write into a no-op; reads still work. ``snapshot()`` returns one
-JSON-able labelled document. The port's ``md.MDEngine`` writes the
-``md_energy_drift_ratio`` gauge; the exporters, traces and health plane
-of the JAX package's ``obs/`` are not ported.
+JSON-able labelled document. The port's ``serving.QuantizedEngine``,
+``server.MicroBatchScheduler`` and ``md.MDEngine`` write it under the
+JAX package's names; the exporters and health plane of the JAX package's
+``obs/`` are not ported.
 """
 from __future__ import annotations
 

@@ -19,10 +19,14 @@ masking of padded atoms.
     results = engine.infer_batch([Graph(species, coords), ...])
 
 The engine runs on CUDA unless ``device="cpu"`` is passed (then every
-kernel runs its plain PyTorch version). ``md_engine()`` hands the
-quantized weights and codebook to an ``md.MDEngine``. Not ported yet: the
-engine's writes to the metrics registry, the sampled LEE probe of the
-guardrails and the packed-artifact constructor.
+kernel runs its plain PyTorch version). ``from_quantized`` builds it
+from serving-format weights with no fp32 tree (the packed-artifact cold
+start, ``server.artifact``); ``md_engine()`` hands the quantized weights
+and codebook to an ``md.MDEngine``. The serving hooks the scheduler
+reads are the JAX engine's: ``last_infer_breakdown``, ``warmup_report``,
+``guard_stats`` (with the sampled LEE probe of the guardrails) and the
+registry counters of ``obs.metrics``; ``shapes_seen`` stands where the
+JAX engine keeps ``compiled_shapes``.
 """
 from __future__ import annotations
 
@@ -36,16 +40,18 @@ import torch
 from repro_torch.core.codebook import make_codebook
 from repro_torch.core.lee import random_rotations
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.guardrails import (GuardrailConfig, GuardrailViolation,
-                                    check_result)
+from repro_torch.guardrails import (Flag, GuardrailConfig,
+                                    GuardrailViolation, check_result)
 from repro_torch.models.so3krates import So3kratesConfig, init_params
+from repro_torch.obs.metrics import REGISTRY
 from repro_torch.serving.bucketing import (BucketSpec, Graph,
                                            build_edge_list, count_edges,
                                            pad_graphs, plan_batches)
 from repro_torch.serving.forward import (batched_energy_and_forces,
                                          sparse_energy_and_forces)
-from repro_torch.serving.qparams import (fp32_bytes, quantize_so3_params,
-                                         serving_bytes)
+from repro_torch.serving.qparams import (QTensor, QuantizedParams,
+                                         fp32_bytes, quantize_so3_params,
+                                         serving_bytes, serving_fp32_equiv)
 
 __all__ = ["ServeConfig", "MoleculeResult", "QuantizedEngine"]
 
@@ -99,7 +105,24 @@ class MoleculeResult:
     bucket_capacity: int     # shape class the molecule rode in
     batch_size: int          # batch rows (incl. alignment dummies)
     path: str = "dense"      # execution path the molecule's batch took
+    # which cluster replica served the batch (0 outside a cluster)
+    replica_id: int = 0
+    # content tag of the packed artifact the serving weights came from
+    # ("" for engines built straight from fp32 params)
+    artifact_version: str = ""
     flags: tuple = ()        # guardrail Flags that fired (mode "mark")
+    # precision-escalation audit trail (guardrails.EscalationRecord)
+    escalations: tuple = ()
+    # the request trace this result answers ("" when tracing is off or
+    # the result came from a direct infer_batch call)
+    trace_id: str = ""
+
+
+def _to_device(v, device: torch.device):
+    if isinstance(v, QTensor):
+        return QTensor(v.kind, v.data.to(device),
+                       None if v.scale is None else v.scale.to(device))
+    return v.to(device)
 
 
 class QuantizedEngine:
@@ -111,22 +134,35 @@ class QuantizedEngine:
     _SPARSE_PROFIT_FACTOR = 4
 
     def __init__(self, model_cfg: So3kratesConfig,
-                 params: Dict[str, torch.Tensor], serve: ServeConfig, *,
-                 device: DeviceLike = None,
+                 params: Optional[Dict[str, torch.Tensor]],
+                 serve: ServeConfig, *,
+                 qparams: Optional[QuantizedParams] = None,
+                 fp32_nbytes: Optional[int] = None,
+                 device: DeviceLike = None, artifact_version: str = "",
                  guardrails: Optional[GuardrailConfig] = None):
-        """Quantize fp32 ``params`` for ``serve.mode`` and place weights
-        and codebook on ``device`` (None = the CUDA device, or raise)."""
+        """Quantize fp32 ``params`` for ``serve.mode``, or take
+        serving-format ``qparams`` as they are (exactly one of the two),
+        and place weights and codebook on ``device`` (None = the CUDA
+        device, or raise). ``fp32_nbytes`` carries the fp32 footprint for
+        ``memory_report`` when no fp32 tree exists; ``artifact_version``
+        is echoed into every :class:`MoleculeResult`."""
+        if (params is None) == (qparams is None):
+            raise ValueError("pass exactly one of params / qparams")
         self.model_cfg = model_cfg
         self.serve = serve
         self.device = resolve_device(device)
+        self.artifact_version = artifact_version
         self.guardrails = (guardrails if guardrails is not None
                            else GuardrailConfig())
-        if self.guardrails.lee_probe_every > 0:
-            raise NotImplementedError("the sampled LEE probe is not ported "
-                                      "yet; use lee_diagnostic")
-        params = {k: v.to(self.device) for k, v in params.items()}
-        self._fp32_bytes = fp32_bytes(params)
-        self.qparams = quantize_so3_params(params, serve.mode)
+        if qparams is None:
+            params = {k: v.to(self.device) for k, v in params.items()}
+            self._fp32_bytes = fp32_bytes(params)
+            self.qparams = quantize_so3_params(params, serve.mode)
+        else:
+            self._fp32_bytes = (fp32_nbytes if fp32_nbytes is not None
+                                else serving_fp32_equiv(qparams))
+            self.qparams = {k: _to_device(v, self.device)
+                            for k, v in qparams.items()}
         self._quant_vec = serve.vectors_quantized
         self._codebook = (make_codebook(model_cfg.dir_bits,
                                         device=self.device)
@@ -135,6 +171,31 @@ class QuantizedEngine:
         # batches dispatched per path; "sparse_fallback" counts batches a
         # sparse-preferring config had to run dense (edge-capacity overflow)
         self.dispatch_stats = {"dense": 0, "sparse": 0, "sparse_fallback": 0}
+        # guardrail telemetry: molecules checked / flagged per detector,
+        # LEE probes run (counts advance only when guardrails.active)
+        self.guard_stats = {"checked": 0, "flagged_nonfinite": 0,
+                            "flagged_outlier": 0, "flagged_lee": 0,
+                            "lee_probes": 0}
+        self._n_infer_calls = 0             # LEE probe sampling counter
+        # every (path, shape) the forwards have run: the counterpart of
+        # the JAX engine's compiled_shapes (steady traffic after warmup
+        # adds none)
+        self.shapes_seen = set()
+        # the registry carries the same counts under the JAX names and
+        # labels, accumulating across engines; the dicts above stay the
+        # per-engine view that reset_stats zeroes
+        self._m_dispatch = {
+            k: REGISTRY.counter("engine_dispatch_total",
+                                mode=serve.mode, path=k)
+            for k in self.dispatch_stats}
+        self._m_guard = {
+            k: REGISTRY.counter("engine_guard_total",
+                                mode=serve.mode, event=k)
+            for k in self.guard_stats}
+        # per-(bucket, batch_size, path) warmup accounting and the last
+        # _infer_raw stage breakdown (read by the scheduler's worker)
+        self.warmup_report: List[Dict] = []
+        self.last_infer_breakdown: Dict[str, float] = {}
 
     @classmethod
     def from_config(cls, model_cfg: So3kratesConfig,
@@ -151,6 +212,20 @@ class QuantizedEngine:
         return cls(model_cfg, params, serve, device=device,
                    guardrails=guardrails)
 
+    @classmethod
+    def from_quantized(cls, model_cfg: So3kratesConfig,
+                       qparams: QuantizedParams, serve: ServeConfig,
+                       fp32_nbytes: Optional[int] = None,
+                       device: DeviceLike = None, artifact_version: str = "",
+                       guardrails: Optional[GuardrailConfig] = None
+                       ) -> "QuantizedEngine":
+        """Build from serving-format parameters (``quantize_so3_params``'
+        output, or a packed artifact's): no fp32 tree, no quantization
+        pass."""
+        return cls(model_cfg, None, serve, qparams=qparams,
+                   fp32_nbytes=fp32_nbytes, device=device,
+                   artifact_version=artifact_version, guardrails=guardrails)
+
     # -- introspection ------------------------------------------------------
 
     def memory_report(self) -> Dict[str, float]:
@@ -161,11 +236,18 @@ class QuantizedEngine:
     def stats_snapshot(self) -> Dict[str, int]:
         return dict(self.dispatch_stats)
 
+    def guard_snapshot(self) -> Dict[str, int]:
+        """Copy of the guardrail counters (checked/flagged per detector,
+        LEE probes run)."""
+        return dict(self.guard_stats)
+
     def reset_stats(self) -> Dict[str, int]:
-        """Zero the dispatch counters, returning the pre-reset snapshot."""
+        """Zero the dispatch and guardrail counters, returning the
+        pre-reset dispatch snapshot."""
         snap = self.stats_snapshot()
-        for k in self.dispatch_stats:
-            self.dispatch_stats[k] = 0
+        for stats in (self.dispatch_stats, self.guard_stats):
+            for k in stats:
+                stats[k] = 0
         return snap
 
     # -- serving ------------------------------------------------------------
@@ -175,8 +257,23 @@ class QuantizedEngine:
         """Run every admissible (bucket, batch class) shape once on every
         path this config can dispatch (dense always: it is the overflow
         fallback), which builds the CUDA kernels on first use. There is no
-        compilation per shape. Returns the seconds spent."""
+        compilation per shape. Returns the seconds spent;
+        ``warmup_report`` holds one entry per (bucket, batch size, path),
+        each ended by a synchronize."""
         t0 = time.monotonic()
+        self.warmup_report = []
+
+        def timed(path: str, cap: int, bsz: int, fn) -> None:
+            s0 = time.monotonic()
+            fn()
+            self._sync()
+            dt = time.monotonic() - s0
+            self.warmup_report.append(
+                {"bucket": cap, "batch_size": bsz, "path": path,
+                 "mode": self.serve.mode, "seconds": dt, "t0": s0})
+            REGISTRY.histogram("engine_warmup_compile_seconds",
+                               mode=self.serve.mode, path=path).observe(dt)
+
         caps = list(buckets) if buckets else [b.capacity
                                               for b in self._buckets]
         for cap in caps:
@@ -188,25 +285,35 @@ class QuantizedEngine:
                 species = np.zeros((bsz, cap), np.int32)
                 coords = np.zeros((bsz, cap, 3), np.float32)
                 mask = np.zeros((bsz, cap), bool)
-                self._run_dense(species, coords, mask)
+                timed("dense", cap, bsz,
+                      lambda: self._run_dense(species, coords, mask))
                 if self._wants_sparse(spec):
                     el = build_edge_list(coords, mask, self.model_cfg.cutoff,
                                          spec.edges)
-                    self._run_sparse(species, coords, mask, el)
+                    timed("sparse", cap, bsz,
+                          lambda: self._run_sparse(species, coords, mask, el))
+        total = time.monotonic() - t0
+        REGISTRY.counter("engine_warmup_seconds_total",
+                         mode=self.serve.mode).inc(total)
+        return total
+
+    def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return time.monotonic() - t0
 
     def _on_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
     def _run_dense(self, species, coords, mask):
+        self.shapes_seen.add(("dense",) + species.shape)
         arrays = [self._on_device(a) for a in (species, coords, mask)]
         return batched_energy_and_forces(
             self.qparams, self.model_cfg, *arrays, self._codebook,
             quant_vectors=self._quant_vec, mddq_kernel=self.serve.mddq_kernel)
 
     def _run_sparse(self, species, coords, mask, el):
+        self.shapes_seen.add(("sparse",) + species.shape
+                             + (el.edge_capacity,))
         arrays = [self._on_device(a) for a in (
             species, coords, mask, el.senders, el.receivers, el.edge_mask)]
         return sparse_energy_and_forces(
@@ -229,31 +336,55 @@ class QuantizedEngine:
             el = build_edge_list(coords, mask, self.model_cfg.cutoff,
                                  spec.edges)
             if el is not None:
-                self.dispatch_stats["sparse"] += 1
+                self._count_dispatch("sparse")
                 e, f = self._run_sparse(species, coords, mask, el)
                 return e, f, "sparse"
-            self.dispatch_stats["sparse_fallback"] += 1
-        self.dispatch_stats["dense"] += 1
+            self._count_dispatch("sparse_fallback")
+        self._count_dispatch("dense")
         e, f = self._run_dense(species, coords, mask)
         return e, f, "dense"
+
+    def _count_dispatch(self, path: str) -> None:
+        self.dispatch_stats[path] += 1
+        self._m_dispatch[path].inc()
+
+    def _count_guard(self, event: str, n: int = 1) -> None:
+        self.guard_stats[event] += n
+        self._m_guard[event].inc(n)
 
     def infer_batch(self, graphs: Sequence[Graph],
                     on_flag: Optional[str] = None) -> List[MoleculeResult]:
         """Energies and forces for a heterogeneous list of molecules, in
-        input order with padding stripped, after the guardrails: a fatal
-        flag raises :class:`GuardrailViolation` (``on_flag="raise"``, the
-        default) or is attached to the result (``"mark"``)."""
+        input order with padding stripped, after the guardrails
+        (non-finite values, the force envelope, and every
+        ``lee_probe_every``-th call the sampled LEE probe): a fatal flag
+        raises :class:`GuardrailViolation` (``on_flag="raise"``, the
+        default) or is attached to the result (``"mark"``, the
+        scheduler's)."""
         results = self._infer_raw(graphs)
         g = self.guardrails
         if not g.active:
             return results
-        flagged = {}
+        self._n_infer_calls += 1
+        self._count_guard("checked", len(results))
+        flagged: Dict[int, tuple] = {}
         for i, r in enumerate(results):
             flags = check_result(r.energy, r.forces, r.bucket_capacity, g)
             if flags:
                 flagged[i] = flags
+        if g.lee_probe_every > 0 \
+                and self._n_infer_calls % g.lee_probe_every == 0:
+            for i, flag in self._lee_probe(graphs, results):
+                flagged[i] = flagged.get(i, ()) + (flag,)
         if not flagged:
             return results
+        for flags in flagged.values():
+            for f in flags:
+                event = {"nonfinite": "flagged_nonfinite",
+                         "force_outlier": "flagged_outlier",
+                         "lee": "flagged_lee"}.get(f.reason)
+                if event is not None:
+                    self._count_guard(event)
         if (on_flag if on_flag is not None else g.on_flag) == "raise":
             worst = max((f for fl in flagged.values() for f in fl),
                         key=lambda f: f.fatal)
@@ -267,21 +398,79 @@ class QuantizedEngine:
                 else r for i, r in enumerate(results)]
 
     def _infer_raw(self, graphs: Sequence[Graph]) -> List[MoleculeResult]:
+        """Plan, pad, dispatch and copy back, with no guardrail pass: also
+        the re-run path of the LEE probe and ``lee_diagnostic``."""
+        t_start = time.monotonic()
         plans = plan_batches(graphs, self._buckets)
+        prep_s = dispatch_s = sync_s = 0.0
         results: List[Optional[MoleculeResult]] = [None] * len(graphs)
         for plan in plans:
+            t0 = time.monotonic()
             species, coords, mask = pad_graphs(
                 graphs, plan, pad_species=self.serve.pad_species)
+            t1 = time.monotonic()
             e, f, path = self._dispatch(species, coords, mask, plan.bucket)
+            t2 = time.monotonic()
             e = e.cpu().numpy()              # device -> host: the sync point
             f = f.cpu().numpy()
+            t3 = time.monotonic()
+            prep_s += t1 - t0
+            dispatch_s += t2 - t1
+            sync_s += t3 - t2
             for row, gi in enumerate(plan.graph_indices):
                 n = graphs[gi].n_atoms
                 results[gi] = MoleculeResult(
                     energy=float(e[row]), forces=f[row, :n], n_atoms=n,
                     bucket_capacity=plan.bucket.capacity,
-                    batch_size=plan.batch_size, path=path)
+                    batch_size=plan.batch_size, path=path,
+                    artifact_version=self.artifact_version)
+        # read by the scheduler's worker right after infer_batch returns,
+        # on the same thread
+        self.last_infer_breakdown = {
+            "prep_s": prep_s, "dispatch_s": dispatch_s, "sync_s": sync_s,
+            "n_plans": len(plans), "total_s": time.monotonic() - t_start}
         return results  # type: ignore[return-value]
+
+    def _probe_rotation(self, n: int) -> np.ndarray:
+        """The LEE probe's rotation for the engine's n-th guarded call: a
+        float32 Haar rotation drawn with numpy from ``lee_seed + n`` (the
+        JAX engine draws from ``PRNGKey(lee_seed + n)``, which the port
+        does not reproduce; a parity test substitutes that R here)."""
+        return random_rotations(self.guardrails.lee_seed + n, 1)[0]
+
+    def _lee_probe(self, graphs: Sequence[Graph],
+                   results: Sequence[MoleculeResult]):
+        """Sampled equivariance check: re-run the batch under one rotation
+        and compare rotated against counter-rotated forces (paper Eq. 1,
+        online). Float32 coordinates rotate by a float32 R, as in
+        ``lee_diagnostic``. Returns ``(index, Flag)`` pairs for molecules
+        whose LEE exceeds the limit, and sets the
+        ``engine_lee_probe_level`` gauge to the worst LEE over the
+        limit."""
+        g = self.guardrails
+        self._count_guard("lee_probes")
+        R = np.asarray(self._probe_rotation(self._n_infer_calls), np.float32)
+        rotated = [Graph(gr.species, np.asarray(gr.coords, np.float32) @ R.T)
+                   for gr in graphs]
+        first = self.last_infer_breakdown
+        rerun = self._infer_raw(rotated)
+        # the call's breakdown covers both runs, as its wall time does
+        self.last_infer_breakdown = {
+            k: first[k] + v for k, v in self.last_infer_breakdown.items()}
+        out = []
+        level = 0.0
+        for i, (r0, r1) in enumerate(zip(results, rerun)):
+            if not np.isfinite(r0.forces).all():
+                continue            # non-finite is already flagged fatal
+            err = float(np.linalg.norm(r1.forces - r0.forces @ R.T))
+            if np.isfinite(err):
+                level = max(level, err / max(g.lee_limit, 1e-12))
+            if not np.isfinite(err) or err > g.lee_limit:
+                out.append((i, Flag("lee", "suspect", value=err,
+                                    limit=g.lee_limit)))
+        REGISTRY.gauge("engine_lee_probe_level",
+                       mode=self.serve.mode).set(level)
+        return out
 
     # -- MD bridge ----------------------------------------------------------
 

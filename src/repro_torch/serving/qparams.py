@@ -23,7 +23,7 @@ from repro_torch.kernels import ops, ref
 
 __all__ = ["QTensor", "QuantPolicy", "QuantizedParams", "qmatmul",
            "ref_qmatmul", "concat_qtensors", "quantize_so3_params",
-           "serving_bytes", "fp32_bytes"]
+           "serving_bytes", "fp32_bytes", "serving_fp32_equiv"]
 
 # names of the equivariant-branch coefficient matrices (paper: W4 in w4a8)
 _EQV_SUFFIXES = ("/wa", "/wb")
@@ -183,3 +183,18 @@ def serving_bytes(qparams: QuantizedParams) -> int:
 
 def fp32_bytes(params: Dict[str, torch.Tensor]) -> int:
     return sum(v.numel() * 4 for v in params.values())
+
+
+def serving_fp32_equiv(qparams: QuantizedParams) -> int:
+    """fp32 byte count the qparams tree *would* occupy: the logical
+    (unpacked, unscaled) element count at 4 bytes/element. Used when an
+    engine is built straight from a packed artifact and no fp32 tree
+    ever existed to measure."""
+    total = 0
+    for v in qparams.values():
+        if isinstance(v, QTensor):
+            total += (v.data.shape[0] * v.out_features * 4
+                      if v.data.ndim == 2 else v.data.numel() * 4)
+        else:
+            total += v.numel() * 4
+    return total

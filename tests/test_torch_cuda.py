@@ -14,7 +14,10 @@ the int8-KV decode attention to 1e-5 (their sums run in another order).
 The LM decode on the card against the CPU plain path to 1e-4 of the
 largest |logit| (float32 smoke config; the card's cuBLAS sums in another
 order than the CPU), and so are 10 MD steps (w8a8, MDDQ off) in
-coordinates and total energy; the device edge list bit for bit.
+coordinates and total energy; the device edge list bit for bit. A packed
+artifact loads onto the card byte for byte, and the scheduler's results
+there match the CPU plain path on the same artifact to 1e-4 (the engine's
+tolerance).
 """
 import numpy as np
 import pytest
@@ -32,7 +35,12 @@ from repro_torch.launch import serve
 from repro_torch.md import MDConfig, MDEngine, pad_replicas
 from repro_torch.models.lm.transformer import init_cache
 from repro_torch.models.so3krates import So3kratesConfig
+from repro_torch.server import (MicroBatchScheduler, SchedulerConfig,
+                                SizeClass, TrafficConfig, load_artifact,
+                                load_engine, make_traffic, run_open_loop,
+                                save_artifact)
 from repro_torch.serving import QuantizedEngine, ServeConfig, random_graphs
+from repro_torch.serving.qparams import QTensor
 from repro_torch.serving.bucketing import build_edge_list, device_edge_list
 
 pytestmark = pytest.mark.cuda
@@ -562,3 +570,76 @@ def test_lm_decode_on_card_matches_cpu_plain_path(cuda):
     diff = (caches[cuda]["blocks"]["k_q"].cpu().int()
             - caches["cpu"]["blocks"]["k_q"].int()).abs()
     assert int(diff.max()) <= 1
+
+
+SERVER_CFG = So3kratesConfig(feat=16, vec_feat=4, n_layers=2, n_rbf=4,
+                             dir_bits=6, cutoff=3.0)
+SERVER_SERVE = ServeConfig(mode="w4a8", path="sparse", bucket_sizes=(16, 32),
+                           max_batch=8, mddq_kernel=True)
+
+
+def _server_artifact(tmp_path):
+    path = str(tmp_path / "model.npz")
+    src = QuantizedEngine.from_config(SERVER_CFG, serve=SERVER_SERVE,
+                                      device="cpu")
+    save_artifact(path, src)
+    return path, src
+
+
+def _server_traffic(n=24):
+    return make_traffic(TrafficConfig(
+        rate_rps=200.0, n_requests=n, seed=1,
+        size_mix=(SizeClass(4, 16, 0.5), SizeClass(17, 32, 0.5))))
+
+
+def test_artifact_loads_onto_card_byte_identical(cuda, tmp_path):
+    path, src = _server_artifact(tmp_path)
+    card = load_engine(path, device=cuda)
+    assert card.artifact_version == load_artifact(path).version_tag
+    for name, v in src.qparams.items():
+        w = card.qparams[name]
+        if isinstance(v, QTensor):
+            pairs = [(v.data, w.data)] + ([(v.scale, w.scale)]
+                                          if v.scale is not None else [])
+        else:
+            pairs = [(v, w)]
+        for a, b in pairs:
+            assert b.device == cuda and b.dtype == a.dtype
+            assert torch.equal(a, b.cpu()), name
+
+
+def test_scheduler_on_card_resolves_and_launches(cuda, tmp_path):
+    """Every handle resolves, and the flushes (on the scheduler's worker
+    thread) launched the SO3 kernels and nothing else."""
+    path, _ = _server_artifact(tmp_path)
+    eng = load_engine(path, device=cuda)
+    counters = (w8a8_matmul_f32a, w4a8_matmul_f32a, edge_softmax_fused,
+                mddq_encode_kernel)
+    others = (act_quant, kv_append_int8, w8a8_matmul, w4a8_matmul,
+              decode_attention_int8kv)
+    with MicroBatchScheduler(eng, SchedulerConfig(max_batch=8,
+                                                  deadline_ms=5.0)) as sched:
+        before = [c.launches for c in counters]
+        quiet = [c.launches for c in others]
+        res = run_open_loop(sched, _server_traffic(), result_timeout=60)
+        stats = sched.stats()
+    assert res.summary()["n_requests"] == 24 and res.n_shed == 0
+    assert stats["n_completed"] == 24
+    assert all(c.launches > b for c, b in zip(counters, before))
+    assert [c.launches for c in others] == quiet
+
+
+def test_scheduler_on_card_matches_cpu_plain_path(cuda, tmp_path):
+    path, _ = _server_artifact(tmp_path)
+    card = load_engine(path, device=cuda)
+    cpu = load_engine(path, device="cpu")
+    graphs = [g for _, g in _server_traffic(16)]
+    with MicroBatchScheduler(card, SchedulerConfig(max_batch=8,
+                                                   deadline_ms=5.0)) as sched:
+        handles = [sched.submit(g) for g in graphs]
+        served = [h.result(timeout=60) for h in handles]
+    plain = cpu.infer_batch(graphs)
+    f_scale = max(float(np.abs(r.forces).max()) for r in plain)
+    for a, b in zip(served, plain):
+        assert abs(a.energy - b.energy) <= 1e-4 * max(abs(b.energy), 1.0)
+        assert float(np.abs(a.forces - b.forces).max()) <= 1e-4 * f_scale

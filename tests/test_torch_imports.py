@@ -56,7 +56,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.launch.serve import build_lm
     from repro_torch.models.lm.attention import init_kv_cache
     from repro_torch.models.lm.transformer import init_cache, init_lm
-    from repro_torch.weights import lm_params_from_numpy, params_from_numpy
+    from repro_torch.server import load_engine
+    from repro_torch.weights import (lm_params_from_numpy, params_from_numpy,
+                                     qparams_from_numpy)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = So3kratesConfig(feat=8, vec_feat=2, n_layers=1, n_rbf=4,
                           dir_bits=4)
@@ -70,7 +72,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     for entry in (lambda: init_lm(lm_cfg), lambda: init_cache(lm_cfg, 1, 4),
                   lambda: init_kv_cache(lm_cfg, 1, 4, torch.float32),
                   lambda: lm_params_from_numpy({}),
-                  lambda: build_lm(lm_cfg)):
+                  lambda: build_lm(lm_cfg),
+                  lambda: qparams_from_numpy({}),
+                  lambda: load_engine("no_such_artifact.npz")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
     with pytest.raises(RuntimeError):

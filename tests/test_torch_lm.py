@@ -357,7 +357,7 @@ def test_kv_write_leaves_the_cache_as_the_stacked_write(monkeypatch, arch,
     assert kv_append_int8.launches == 0
 
 
-def test_serve_cli_runs_on_the_cpu(capsys):
+def test_serve_cli_runs_on_the_cpu(capsys, monkeypatch):
     serve.main(["--workload", "lm", "--arch", "qwen2-0.5b", "--smoke",
                 "--quant", "serve_w8a8", "--kv-quant", "--tokens", "4",
                 "--batch", "2", "--cache-len", "8", "--device", "cpu"])
@@ -374,5 +374,10 @@ def test_serve_cli_runs_on_the_cpu(capsys):
     b = serve.greedy_decode(lm, 2, 8, 5)
     assert a.tokens.shape == (2, 5) and torch.equal(a.tokens, b.tokens)
     assert a.cache_bytes == 2 * 2 * 2 * 8 * (8 + 4)   # L, k|v, B, S, hd+4
+    # the CLI refuses what the port lacks, and its SO3 workload keeps the
+    # device rule: no card and no --device cpu raises
     with pytest.raises(SystemExit):
+        serve.main(["--workload", "so3", "--replicas", "2"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
         serve.main(["--workload", "so3"])

@@ -300,9 +300,13 @@ class TestEngine:
         marked = QuantizedEngine.from_config(TCFG, **kw).infer_batch(
             [bad], on_flag="mark")
         assert marked[0].flags[0].reason == "nonfinite"
-        with pytest.raises(NotImplementedError):
-            QuantizedEngine.from_config(
-                TCFG, guardrails=GuardrailConfig(lee_probe_every=2), **kw)
+        # the sampled LEE probe skips a non-finite molecule (already fatal)
+        probed = QuantizedEngine.from_config(
+            TCFG, guardrails=GuardrailConfig(lee_probe_every=1), **kw)
+        marked = probed.infer_batch([bad], on_flag="mark")
+        assert [f.reason for f in marked[0].flags] == ["nonfinite"]
+        assert probed.guard_stats["lee_probes"] == 1
+        assert probed.guard_stats["flagged_nonfinite"] == 1
 
 
 def _recording(engine):
