@@ -91,6 +91,44 @@
    largest flush, and runs the serve CLI (``--workload so3 --server
    --artifact``) once, counted: the artifact's sparse path and MDDQ
    kernel carry over, so K1'/K2', K3 and K4 must launch.
+7. Runs the cluster (``repro_torch.cluster``) and a checkpointed MD
+   session (``repro_torch.sessions``) on the card at the paper's width:
+   ``ClusterPool.from_tiers`` with two w4a8, one w8a8 and one fp32
+   replica on cuda:0 (one stream each, guardrails marking, a 30 s stall
+   watchdog), phase 6's serving config and traffic. First a burst of 200
+   requests through one engine's scheduler and through the pool (what
+   one interpreter sustains). Then, counted: the 400-request replay with
+   a rolling ``swap_artifact`` of the w4a8 tier to an artifact of other
+   weights (numpy seed 1) fired halfway and ``kill_replica(1,
+   "in_flight")`` at three quarters, and beside it one MD session (phase
+   5's system, 400 steps in chunks of 100, a record every 50, a
+   checkpoint every 2 chunks). Checks: every request resolves (none shed,
+   no quarantine or escalation), every result's version names the engine
+   that ran it, the launches that each replica worker tallies by role
+   (``flush:<tier>``, ``warmup:<tier>``, ``chunk:<tier>``) equal that
+   role's prediction from the dispatches per (mode, path), the swapped
+   engines' warmup runs and the session's force calls
+   (``launches_per_forward``), and together the window's total (nothing
+   else runs), the frames arrive once each in index order, the newest
+   checkpoint restores with every digest verified, and 32 sampled
+   requests equal direct calls on their version's engine (energies
+   exactly, forces to 1e-5, a larger gap only with moved codes). Every
+   kernel call is then held against its plain version at the path's own
+   shapes: each tier's engine (w4a8 after the swap, w8a8, fp32) at a
+   singleton flush of each bucket and at the replay's largest flush of
+   each bucket, and one session step. Then three drills: resume (a fresh manager
+   after the newest checkpoint is corrupted: the tail replays from the
+   one before with its frame indices, e_tot within 1e-2 and any gap
+   above 1e-4 traced to moved A8 codes), stall (a w4a8 replica stalled
+   past the watchdog: quarantined, its requests resolved elsewhere, its
+   engine cold-restarted on cuda:0 on probation) and escalation (a
+   hair-trigger w4a8 replica's result re-run on w8a8, bit for bit equal
+   to a direct w8a8 call under deterministic algorithms); and the serve
+   CLI's cluster flags once, counted. Prints latency percentiles and
+   req/s beside phase 6's, flushes per replica, warmup, the swap's pause
+   and warmup per replica, the cold restart's seconds, the session's
+   steps/s and ns/day, checkpoint seconds and the largest flush's device
+   share, each beside the card's name and power limit.
 
 Phase 2 also holds the act-quant kernel bit for bit (float32 and bf16),
 its KV entry (the decode's whole int8 KV write) byte for byte over a
@@ -154,6 +192,16 @@ SERVER_BUCKETS, SERVER_RATE, SERVER_REQUESTS = (16, 32), 100.0, 400
 # sampled requests held against direct single-molecule calls, to this
 # share of the largest |value| (a larger gap must come with moved codes)
 SERVER_SAMPLE, SERVER_TOL = 32, 1e-5
+# phase 7: the tiered fleet on one card; a replica busy on one unit of
+# work past CLUSTER_STALL_S is stalled (above the longest MD chunk: 100
+# steps of host-bound work); the session is phase 5's system, 400 steps
+CLUSTER_TIERS = {"w4a8": 2, "w8a8": 1, "fp32": 1}
+CLUSTER_STALL_S, CLUSTER_PROBATION_S = 30.0, 5.0
+SESSION_STEPS, SESSION_CHUNK, SESSION_CKPT_EVERY = 400, 100, 2
+# a replayed w4a8 session frame against its first emission, over the
+# largest |e_tot|: held to 1e-2, and a gap above REPLAY_TRACE is traced
+# to moved A8 codes (md_a8_split)
+REPLAY_TRACE = 1e-4
 TRUNK_W8 = (64, 192)         # wq | wk | wm
 TRUNK_W4 = (64, 32)          # wa | wb
 OTHER_W8 = {"w_upd": (64, 64), "w_vnorm": (16, 64), "ro_w1": (80, 64),
@@ -921,19 +969,25 @@ def counted_run(fn):
     by search: ``mddq_encode_kernel`` the band search, and
     ``mddq_encode_full_search`` the full search. ``quantized_products``
     counts the calls of ``ops.matmul_w8a8``/``matmul_w4a8``, the serving
-    path's quantized matmul entries."""
-    from repro_torch.kernels import ops
+    path's quantized matmul entries, under the wrappers' lock (replica
+    workers call them from several threads). The role tallies
+    (``_launch.role_launches``) are reset with the counts."""
+    from repro_torch.kernels import _launch, ops
     from repro_torch.kernels.mddq_kernel import mddq_encode_kernel
     counters = kernel_counters()
     for c in counters:
         c.launches = 0
     mddq_encode_kernel.full_launches = 0
+    _launch.reset_role_launches()
     entries = {k: getattr(ops, k) for k in ("matmul_w8a8", "matmul_w4a8")}
-    products = [0]
+
+    def quantized_products():
+        """Holder of the quantized matmul entries' call count."""
+    quantized_products.launches = 0
 
     def counting(fn_):
         def call(*args, **kw):
-            products[0] += 1
+            _launch.count_launch(quantized_products)
             return fn_(*args, **kw)
         return call
     for k, fn_ in entries.items():
@@ -947,7 +1001,7 @@ def counted_run(fn):
     full = mddq_encode_kernel.full_launches
     counts["mddq_encode_kernel"] -= full
     counts["mddq_encode_full_search"] = full
-    counts["quantized_products"] = products[0]
+    counts["quantized_products"] = quantized_products.launches
     return out, counts
 
 
@@ -1554,13 +1608,16 @@ def run_md(torch, dev, cfg):
             require(rel_e <= 1e-4, f"MD (fp32): card and CPU plain path "
                                    f"disagree on e_tot: {rel_e}")
         else:
-            md_a8_split(torch, engs, res[1][0], system, rel_e)
+            md_a8_split(torch, [(e, res[1][0]) for e in engs], system,
+                        rel_e)
     return launches
 
 
-def md_a8_split(torch, engs, state, system, rel_e):
-    """Where a w4a8 MD energy gap between card and CPU comes from: the
-    forward at one state's coordinates on both devices, each quantized
+def md_a8_split(torch, runs, system, rel_e, label="card vs CPU"):
+    """Where a w4a8 MD energy gap between two runs comes from (card
+    against CPU at one state, or one engine at two states that differ
+    only by the card's summation orders): the forward of each
+    ``(engine, state)`` run at its state's coordinates, each quantized
     product's A8 codes (``act_quant_ref`` of its input, which the f32-A
     kernels quantize bit for bit alike) recorded per replica. An ulp of
     summation order that crosses an A8 rounding boundary moves a code,
@@ -1572,34 +1629,36 @@ def md_a8_split(torch, engs, state, system, rel_e):
     most 0.5% of its codes (the near ties; later products inherit)."""
     from repro_torch.serving.forward import sparse_energy_and_forces
     species, _, mask, masses = system
+    n_rep = mask.shape[0]
     out = []
-    for eng in engs:
+    for eng, state in runs:
+        def on(x):
+            return torch.as_tensor(x).to(eng.device)
         with recorded_codes() as (codes, _):
             sp_t, mask_t, _ = eng.device_inputs(species, mask, masses)
-            nl = [t.to(eng.device) for t in (state.nlist.senders,
-                                             state.nlist.receivers,
-                                             state.nlist.edge_mask)]
+            nl = [on(t) for t in (state.nlist.senders, state.nlist.receivers,
+                                  state.nlist.edge_mask)]
             e, _ = sparse_energy_and_forces(
-                eng.qparams, eng.model_cfg, sp_t, state.coords.to(eng.device),
+                eng.qparams, eng.model_cfg, sp_t, on(state.coords),
                 mask_t, *nl, quant_vectors=False, refine_cutoff=True)
-        out.append((e.cpu().numpy(), codes))
+        out.append((e.detach().cpu().numpy(), codes))
     (e_card, c_card), (e_cpu, c_cpu) = out
     gap = np.abs(e_card - e_cpu) / np.abs(e_cpu).max()
-    moved = np.array([(a != b).reshape(MD_REPLICAS, -1).sum(1)
+    moved = np.array([(a != b).reshape(n_rep, -1).sum(1)
                       for a, b in zip(c_card, c_cpu)])   # (products, B)
     per_product = moved.sum(1)
-    print(f"  at one state's coordinates: e_pot gap per replica (rel.) "
+    print(f"  {label}, at the states' coordinates: e_pot gap per replica "
+          f"(rel.) "
           f"{np.array2string(gap, precision=2)}; A8 codes moved per "
           f"product {per_product.tolist()}, per replica "
           f"{moved.sum(0).tolist()}")
-    require(rel_e <= 1e-2, f"MD (w4a8): card and CPU e_tot differ by "
-                           f"{rel_e}")
+    require(rel_e <= 1e-2, f"MD (w4a8, {label}): e_tot differs by {rel_e}")
     unexplained = (gap > 1e-4) & (moved.sum(0) == 0)
-    require(not unexplained.any(), f"MD (w4a8): e_pot gaps {gap} with no "
-                                   "A8 code moved")
+    require(not unexplained.any(), f"MD (w4a8, {label}): e_pot gaps {gap} "
+                                   "with no A8 code moved")
     for i in np.flatnonzero(per_product)[:1]:
         require(per_product[i] <= 0.005 * c_cpu[i].numel(),
-                f"MD (w4a8): {per_product[i]} A8 codes of "
+                f"MD (w4a8, {label}): {per_product[i]} A8 codes of "
                 f"{c_cpu[i].numel()} moved in product {i}")
 
 
@@ -1661,10 +1720,10 @@ def request_split(torch, eng, flush_graphs, i):
     return moved_a8, moved_mddq
 
 
-def check_flush_kernels(torch, eng, graphs, label):
-    """Every kernel call of one flush (``eng.infer_batch(graphs)``, run
-    again) held against its plain version on the inputs it was given, as
-    phase 2 holds them: the f32-A matmuls bit for bit against
+def check_kernel_calls(torch, run, label):
+    """Every kernel call of ``run()`` (a flush run again, one MD step)
+    held against its plain version on the inputs it was given, as phase 2
+    holds them: the f32-A matmuls bit for bit against
     ``act_quant_ref`` and the plain matmul, K3 to 1e-5 with empty
     receivers exactly 0, K4's codes identical. Returns {kernel: (max
     error, shapes seen)}."""
@@ -1686,7 +1745,7 @@ def check_flush_kernels(torch, eng, graphs, label):
     for k, fn in saved.items():
         setattr(ops, k, recording(k, fn))
     try:
-        eng.infer_batch(graphs)
+        run()
     finally:
         for k, fn in saved.items():
             setattr(ops, k, fn)
@@ -1917,8 +1976,9 @@ def run_server(torch, dev, cfg, graphs):
                 f"flushes in buckets {sorted(largest)} only")
         held = {}
         for cap_b, tids in sorted(largest.items()):
-            seen = check_flush_kernels(
-                torch, eng, [by_trace[t].graph for t in tids],
+            flush = [by_trace[t].graph for t in tids]
+            seen = check_kernel_calls(
+                torch, lambda: eng.infer_batch(flush),
                 f"largest flush of bucket {cap_b} ({len(tids)} molecules)")
             for name, (err, shapes) in seen.items():
                 e0, sh0 = held.get(name, (0.0, []))
@@ -1966,7 +2026,566 @@ def run_server(torch, dev, cfg, graphs):
                 and cli_launches["mddq_encode_kernel"] > 0,
                 f"the CLI's replay did not run the sparse path's kernels: "
                 f"{cli_launches}")
-    return launches, held
+    return launches, held, s
+
+
+# --- phase 7: the cluster and a checkpointed MD session ----------------------
+
+def launches_per_forward(mode, path, n_layers):
+    """Kernel launches of one forward and backward (a serving dispatch, a
+    warmup run or an MD force call) with the MDDQ kernel on, read off
+    ``serving/forward.py`` and ``serving/qparams.py``: per layer 5
+    quantized products on the sparse path and 8 dense, plus the readout's
+    one, all f32-A W8 launches except the trunk's ``wa|wb`` W4 product in
+    w4a8 (1 per layer sparse, 2 dense); fp32 quantizes nothing; a K3 per
+    layer on the sparse path; a K4 per layer where vectors are quantized
+    (not fp32)."""
+    L = n_layers
+    products = 0 if mode == "fp32" else (5 * L + 1 if path == "sparse"
+                                         else 8 * L + 1)
+    w4 = L * (1 if path == "sparse" else 2) if mode == "w4a8" else 0
+    return {"w8a8_matmul_f32a": products - w4, "w4a8_matmul_f32a": w4,
+            "edge_softmax_fused": L if path == "sparse" else 0,
+            "mddq_encode_kernel": 0 if mode == "fp32" else L}
+
+
+def predict_launches(runs, n_layers):
+    """Summed :func:`launches_per_forward` over ``{(mode, path): count}``."""
+    out = dict.fromkeys(SO3_KERNELS, 0)
+    for (mode, path), n in runs.items():
+        for k, v in launches_per_forward(mode, path, n_layers).items():
+            out[k] += v * n
+    return out
+
+
+@contextlib.contextmanager
+def counted_force_calls():
+    """MD force calls (``MDEngine._energy_forces``, the initial state's
+    included) per mode inside the block, from any thread."""
+    import threading
+    from repro_torch.md.engine import MDEngine
+    counts, lock = {}, threading.Lock()
+    plain = MDEngine._energy_forces
+
+    def counting(self, *args, **kw):
+        with lock:
+            counts[self.md.mode] = counts.get(self.md.mode, 0) + 1
+        return plain(self, *args, **kw)
+    MDEngine._energy_forces = counting
+    try:
+        yield counts
+    finally:
+        MDEngine._energy_forces = plain
+
+
+def dispatch_counts(modes=("w4a8", "w8a8", "fp32")):
+    """The process-wide ``engine_dispatch_total`` counters per (mode,
+    path): they accumulate across engines, swapped-out ones included."""
+    from repro_torch.obs import REGISTRY
+    return {(m, p): REGISTRY.counter("engine_dispatch_total", mode=m,
+                                     path=p).value
+            for m in modes for p in ("dense", "sparse")}
+
+
+def burst_rate(submit, graphs, timeout=120):
+    """Requests per second completed when ``graphs`` arrive at once:
+    first submit to last completion."""
+    t0 = time.monotonic()
+    handles = [submit(g) for g in graphs]
+    for h in handles:
+        h.result(timeout=timeout)
+    return len(graphs) / (max(h.t_done for h in handles) - t0)
+
+
+def run_cluster(torch, dev, cfg, single):
+    """The cluster and a checkpointed MD session at the paper's width:
+    Poisson traffic through ``ClusterPool.from_tiers`` with a rolling
+    swap and an in-flight kill, one MD session beside it, counted; its
+    gates; the resume, stall and escalation drills; the CLI once.
+    ``single`` is phase 6's replay summary, printed beside the cluster's.
+    Returns {"cluster": launches, "md_session": launches, "held":
+    {kernel: (max error, shapes)}}: the launches measured in the replay's
+    window, by the replicas' flushes and warmup runs and by the session's
+    chunks; the errors of the kernel calls held at this path's shapes."""
+    import tempfile
+    import threading
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.cluster import ClusterConfig, ClusterPool
+    from repro_torch.guardrails import ForceEnvelope, GuardrailConfig
+    from repro_torch.kernels import _launch
+    from repro_torch.launch import serve as cli
+    from repro_torch.md import MDConfig
+    from repro_torch.models.so3krates import init_params
+    from repro_torch.obs import TRACER, configure_tracing
+    from repro_torch.server import (MicroBatchScheduler, RequestHandle,
+                                    SchedulerConfig, SizeClass,
+                                    TrafficConfig, load_engine, make_traffic,
+                                    run_open_loop, save_artifact)
+    from repro_torch.serving import QuantizedEngine, ServeConfig
+    from repro_torch.sessions import (SessionConfig, SessionManager,
+                                      corrupt_checkpoint)
+    serve = ServeConfig(mode="w4a8", bucket_sizes=SERVER_BUCKETS,
+                        max_batch=8, edge_capacity=1024, path="sparse",
+                        mddq_kernel=True)
+    guard = GuardrailConfig(check_finite=True, on_flag="mark")
+    ident = gpu_identity()
+    L = cfg.n_layers
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+
+    t0 = time.perf_counter()
+    pool = ClusterPool.from_tiers(
+        cfg, params=init_params(cfg, 0, dev), serve=serve,
+        tier_plan=CLUSTER_TIERS, guardrails=guard, device=dev,
+        cluster=ClusterConfig(max_batch=8, deadline_ms=10.0,
+                              stall_timeout_s=CLUSTER_STALL_S,
+                              probation_s=CLUSTER_PROBATION_S))
+    build_s = time.perf_counter() - t0
+    reps = pool._replicas
+    st0 = pool.stats()
+    print(f"  pool: {[(r.replica_id, r.tier, str(r.device)) for r in reps]}"
+          f", built and warmed in {build_s:.3f} s; warmup per replica "
+          f"{[round(r['warmup_s'], 3) for r in st0['replicas']]} s "
+          f"(parallel, one thread each) [{ident}]")
+    require(all(r.device == dev for r in reps) and (
+        dev.type != "cuda"
+        or len({r.stream.cuda_stream for r in reps}) == len(reps)),
+        "replicas are not on the card with one stream each")
+    old_w4 = reps[0].engine                 # the pre-swap w4a8 weights
+    src1 = QuantizedEngine.from_config(cfg, serve=serve, seed=1, device=dev)
+    swap_path = str(Path(tmp) / "w4a8_seed1.npz")
+    save_artifact(swap_path, src1)
+    new_w4 = load_engine(swap_path, device=dev)
+    refs = {old_w4.artifact_version: old_w4,
+            new_w4.artifact_version: new_w4}
+
+    traffic = make_traffic(TrafficConfig(
+        rate_rps=SERVER_RATE, n_requests=SERVER_REQUESTS, seed=0,
+        size_mix=(SizeClass(9, 16, 0.5), SizeClass(17, 24, 0.5))))
+    graphs = [g for _, g in traffic]
+
+    # what the host sustains: a burst of 200 through one engine's
+    # scheduler, then through the two w4a8 replicas (one interpreter)
+    burst = graphs[:200]
+    one = QuantizedEngine.from_quantized(cfg, old_w4.qparams, serve,
+                                         device=dev)
+    with MicroBatchScheduler(one, SchedulerConfig(
+            max_batch=8, deadline_ms=10.0)) as sched:
+        rate_one = burst_rate(sched.submit, burst)
+    rate_two = burst_rate(pool.submit, burst)
+    print(f"  burst of {len(burst)} requests: one engine's scheduler "
+          f"{rate_one:.2f} req/s, the pool's two w4a8 replicas "
+          f"{rate_two:.2f} req/s ({rate_two / rate_one:.3f}x) [{ident}]")
+
+    # the main run: the replay with a rolling swap at half and an
+    # in-flight kill of replica 1 at three quarters, and one MD session
+    species, coords, _, _ = md_system(cfg)
+    scfg = SessionConfig(
+        n_steps=SESSION_STEPS, chunk_steps=SESSION_CHUNK,
+        record_every=MD_RECORD_EVERY, checkpoint_every=SESSION_CKPT_EVERY,
+        temperature_K=MD_TEMPERATURE, n_replicas=MD_REPLICAS,
+        md=MDConfig(mode="w4a8", dt_fs=MD_DT_FS, skin=MD_SKIN,
+                    record_every=MD_RECORD_EVERY, mddq_kernel=True))
+    root = str(Path(tmp) / "sessions")
+    mgr = SessionManager(pool, root)
+    ckpt_s = []
+    plain_ckpt = mgr._checkpoint
+
+    def timed_checkpoint(session):
+        t = time.perf_counter()
+        plain_ckpt(session)
+        ckpt_s.append(time.perf_counter() - t)
+    mgr._checkpoint = timed_checkpoint
+    handles, swap_report, events = [], {}, {}
+
+    class Recording:
+        """The pool, keeping every handle it gives out."""
+        stats = pool.stats
+
+        def submit(self, g):
+            handles.append(pool.submit(g))
+            return handles[-1]
+
+    def swap():
+        t = time.perf_counter()
+        try:
+            swap_report.update(pool.swap_artifact(swap_path))
+        except BaseException as exc:       # raised after the replay
+            swap_report["error"] = exc
+        events["swap_s"] = time.perf_counter() - t
+
+    def kill():
+        events["kill_at"] = time.monotonic()
+        pool.kill_replica(1, mode="in_flight")
+
+    def main_run():
+        timers = [threading.Timer(traffic[len(traffic) // 2][0], swap),
+                  threading.Timer(traffic[3 * len(traffic) // 4][0], kill)]
+        t = time.perf_counter()
+        session = mgr.start(species[0, :MD_ATOMS], coords[0, :MD_ATOMS],
+                            np.full(MD_ATOMS, MD_MASS, np.float32),
+                            config=scfg, seed=0, session_id="md")
+        for tm in timers:
+            tm.start()
+        res = run_open_loop(Recording(), traffic, rate_rps=SERVER_RATE,
+                            result_timeout=300)
+        for tm in timers:
+            tm.join()
+        session.wait(600)
+        events["session_s"] = time.perf_counter() - t
+        return res, session
+
+    pool.reset_stats()
+    d0 = dispatch_counts()
+    configure_tracing(enabled=True)
+    TRACER.reset()
+    try:
+        with counted_force_calls() as force_calls:
+            (res, session), launches = counted_run(main_run)
+        by_role = _launch.role_launches()
+    finally:
+        configure_tracing(enabled=False)
+    TRACER.drain()
+    d1 = dispatch_counts()
+    stats = pool.stats()
+    require("error" not in swap_report,
+            f"the rolling swap failed: {swap_report.get('error')}")
+
+    s = res.summary()
+    print(f"  replay: {s['n_requests']} requests at {SERVER_RATE:.0f} req/s"
+          f" offered: p50 {s['p50_ms']:.3f} ms, p95 {s['p95_ms']:.3f}, p99 "
+          f"{s['p99_ms']:.3f}, max {s['max_ms']:.3f}; "
+          f"{s['throughput_rps']:.2f} req/s over {s['span_s']:.3f} s "
+          f"[{ident}]")
+    print(f"  phase 6's single engine, same traffic: p50 "
+          f"{single['p50_ms']:.3f} ms, p95 {single['p95_ms']:.3f}, p99 "
+          f"{single['p99_ms']:.3f}; {single['throughput_rps']:.2f} req/s")
+    print(f"  flushes {stats['n_flushes']}, reasons {stats['flush_reasons']}"
+          f"; per replica {stats['per_replica']}; routed "
+          f"{stats['router']['routed_per_replica']}, requeued "
+          f"{stats['router']['n_requeued']}, failures "
+          f"{stats['router']['n_failures']} [{ident}]")
+    for r in swap_report.get("replicas", []):
+        print(f"  swap -> {swap_report['version_tag']}, replica "
+              f"{r['replica_id']}: warmup {r['warmup_s']:.3f} s, pause "
+              f"{r['pause_s'] * 1e3:.3f} ms, total {r['total_s']:.3f} s")
+    steps_s = SESSION_STEPS / events["session_s"]
+    print(f"  MD session beside the traffic: {SESSION_STEPS} steps of "
+          f"{MD_REPLICAS} x {MD_ATOMS} atoms in {events['session_s']:.3f} s"
+          f" -> {steps_s:.2f} steps/s, "
+          f"{steps_s * MD_DT_FS * 1e-6 * 86400:.4f} ns/day per replica; "
+          f"{session.n_retries} chunk retries; checkpoints "
+          f"{[round(t, 4) for t in ckpt_s]} s; versions "
+          f"{session.artifact_versions} [{ident}]")
+
+    # gates: nothing lost or shed, every error a failover's
+    require(s["n_requests"] == SERVER_REQUESTS and res.n_shed == 0,
+            f"{s['n_requests']} of {SERVER_REQUESTS} resolved, "
+            f"{res.n_shed} shed")
+    results = [h.result(timeout=0) for h in handles]
+    require(all(np.isfinite(r.energy) and not r.flags for r in results),
+            "a replay result is not finite or flagged")
+    g = stats["guardrails"]
+    require(g["n_quarantined"] == 0 and g["n_escalated"] == 0,
+            f"the replay quarantined or escalated: {g}")
+    require(stats["n_live"] == len(reps) - 1
+            and stats["router"]["n_failures"] == 1,
+            f"{stats['n_live']} live replicas, "
+            f"{stats['router']['n_failures']} failures after one kill")
+    # every result names the engine that ran it: the old or the new tag,
+    # the new one only from swapped replicas, never old after new
+    swapped = {r["replica_id"] for r in swap_report["replicas"]}
+    tags = {r.artifact_version for r in results}
+    require(swapped and tags <= set(refs) and len(tags) == 2,
+            f"result versions {tags}, swapped replicas {swapped}")
+    for rid in {r.replica_id for r in results}:
+        seq = [r.artifact_version for h, r in sorted(
+            zip(handles, results), key=lambda p: p[0].t_done)
+            if r.replica_id == rid]
+        new = [v == swap_report["version_tag"] for v in seq]
+        require(new == sorted(new) and (rid in swapped or not any(new)),
+                f"replica {rid} served versions out of order")
+    # the launches, measured per role (a replica's flushes, warmup runs
+    # and session chunks at each tier), each against its own prediction:
+    # the dispatches per (mode, path), the swapped engines' warmup runs
+    # and the session's force calls, times launches_per_forward
+    runs = {k: int(d1[k] - d0[k]) for k in d0}
+    warm = {}
+    for rid in swapped:
+        for w in reps[rid].engine.warmup_report:
+            warm[(w["mode"], w["path"])] = warm.get((w["mode"], w["path"]),
+                                                    0) + 1
+    predicted = {}
+    for kind, per in (("flush", runs), ("warmup", warm), ("chunk", {
+            (m, "sparse"): n for m, n in force_calls.items()})):
+        for (mode, path), n in per.items():
+            if n:
+                role = predicted.setdefault(f"{kind}:{mode}",
+                                            dict.fromkeys(SO3_KERNELS, 0))
+                for k, v in predict_launches({(mode, path): n}, L).items():
+                    role[k] += v
+    print(f"  dispatches {runs}; swapped engines' warmup runs {warm}; MD "
+          f"force calls {force_calls}; launches {launches}")
+    others = ("mddq_encode_full_search", "act_quant", "w8a8_matmul",
+              "w4a8_matmul", "kv_append_int8", "decode_attention_int8kv")
+    for role in sorted(set(predicted) | set(by_role)):
+        got = {k: v for k, v in by_role.get(role, {}).items()
+               if k != "quantized_products"}
+        want = predicted.get(role, {})
+        print(f"  {role}: launches {got}, predicted {want}")
+        require(got == {k: v for k, v in want.items() if v},
+                f"{role}: launches {got}, predicted {want}")
+        require(by_role.get(role, {}).get("quantized_products", 0)
+                == want.get("w8a8_matmul_f32a", 0)
+                + want.get("w4a8_matmul_f32a", 0),
+                f"{role}: quantized products {by_role.get(role)}")
+    # every launch of the window was made by a flush, a warmup or a chunk
+    for name in SO3_KERNELS + ("quantized_products",):
+        require(sum(t.get(name, 0) for t in by_role.values())
+                == launches[name],
+                f"{name}: {launches[name]} launches, "
+                f"{sum(t.get(name, 0) for t in by_role.values())} of them "
+                "by a replica's flush, warmup or chunk")
+    for name in others:
+        require(launches[name] == 0, f"{name} ran in the cluster")
+    measured = {"cluster": dict.fromkeys(SO3_KERNELS, 0),
+                "md_session": dict.fromkeys(SO3_KERNELS, 0)}
+    for role, t in by_role.items():
+        part = measured["md_session" if role.startswith("chunk:")
+                        else "cluster"]
+        for k in SO3_KERNELS:
+            part[k] += t.get(k, 0)
+    # session frames: once each, in index order, finite
+    n_frames = SESSION_STEPS // MD_RECORD_EVERY
+    first = {f.index: f for f in session.collected}
+    require([f.index for f in session.collected] == list(range(n_frames))
+            and session.status == "done"
+            and all(np.isfinite(f.e_tot).all() for f in first.values()),
+            f"session frames {[f.index for f in session.collected]}, "
+            f"status {session.status}")
+    # the newest checkpoint restores with every digest verified
+    cm = CheckpointManager(session.checkpoint_dir)
+    last = SESSION_STEPS // SESSION_CHUNK
+    require(cm.all_steps() == list(range(SESSION_CKPT_EVERY, last + 1,
+                                         SESSION_CKPT_EVERY))
+            and all(cm.is_valid(k) for k in cm.all_steps())
+            and cm.latest_step() == last, f"checkpoints {cm.all_steps()}")
+    arrays = cm.restore_arrays(last)
+    back = cm.restore(last, like=arrays, device=dev)
+    require(np.array_equal(arrays["coords"], session.state.coords)
+            and all(back[k].device == dev for k in back),
+            "the newest checkpoint does not restore the session's state")
+
+    # 32 sampled requests against direct calls on their version's engine
+    by_trace = {h.trace.trace_id: h for h in handles}
+    flush_of = {tid: [by_trace[t] for t in f.trace_ids]
+                for f in pool.flush_records() for tid in f.trace_ids}
+    pick = np.random.default_rng(0).choice(len(handles), SERVER_SAMPLE,
+                                           replace=False)
+    worst_e = worst_f = 0.0
+    for i in pick:
+        h, r = handles[i], results[i]
+        ref = refs[r.artifact_version]
+        d = ref.infer_batch([h.graph])[0]
+        de = abs(r.energy - d.energy) / max(abs(d.energy), 1e-12)
+        df = float(np.abs(r.forces - d.forces).max()
+                   / max(float(np.abs(d.forces).max()), 1e-12))
+        worst_e, worst_f = max(worst_e, de), max(worst_f, df)
+        if de == 0.0 and df <= SERVER_TOL:
+            continue
+        peers = flush_of[h.trace.trace_id]
+        moved_a8, moved_mddq = request_split(
+            torch, ref, [p.graph for p in peers], peers.index(h))
+        print(f"  request {i} (replica {r.replica_id}): energy gap {de}, "
+              f"forces {df}; A8 codes moved per product {moved_a8}, MDDQ "
+              f"codes per call {moved_mddq}")
+        require(sum(moved_a8) + sum(moved_mddq) > 0,
+                f"request {i}: a gap with no A8 or MDDQ code moved")
+    print(f"  {SERVER_SAMPLE} sampled requests vs direct infer_batch([g]) "
+          f"on their version's engine (rel. to the request's largest "
+          f"|value|): energy {worst_e}, forces {worst_f}")
+
+    # the kernels at this path's own shapes, each call held against its
+    # plain version on its replica's stream: every tier's engine at a
+    # singleton flush of each bucket (an escalation tier's flush) and at
+    # the replay's largest flush of each bucket, and one session step
+    largest = {}
+    for f in pool.flush_records():
+        if len(f.trace_ids) > len(largest.get(f.capacity, ())):
+            largest[f.capacity] = f.trace_ids
+    single_of = {cap: next(gr for gr in graphs if (gr.n_atoms <= 16)
+                           == (cap == 16)) for cap in SERVER_BUCKETS}
+    held = {}
+
+    def hold(seen):
+        for name, (err, shapes) in seen.items():
+            e0, sh0 = held.get(name, (0.0, []))
+            held[name] = (max(e0, err), sh0 + [x for x in shapes
+                                               if x not in sh0])
+    for rep in (reps[0], reps[2], reps[3]):   # w4a8 (swapped), w8a8, fp32
+        cases = [(f"singleton flush of bucket {cap}", [gr])
+                 for cap, gr in sorted(single_of.items())]
+        cases += [(f"the replay's largest flush of bucket {cap} "
+                   f"({len(tids)} molecules)",
+                   [by_trace[t].graph for t in tids])
+                  for cap, tids in sorted(largest.items())]
+        with rep._engine_lock, rep.on_stream():
+            for what, batch in cases:
+                hold(check_kernel_calls(
+                    torch, lambda: rep.engine.infer_batch(batch),
+                    f"{rep.tier} replica {rep.replica_id}, {what}"))
+    step = mgr._make_chunk_fn(session, 1)
+    with reps[0]._engine_lock, reps[0].on_stream():
+        hold(check_kernel_calls(
+            torch, lambda: step(reps[0].engine),
+            f"one session step on replica 0 ({MD_REPLICAS} x {MD_ATOMS} "
+            "atoms, refined skin list)"))
+    require(set(held) == set(SO3_KERNELS),
+            f"phase 7's kernel checks ran {sorted(held)}")
+
+    # the device's share of the largest flush, on its version's engine
+    peers = max(flush_of.values(), key=len)
+    if dev.type == "cuda":
+        print(f"  the largest flush, {len(peers)} molecules [{ident}]:")
+        profile_batch(torch, refs[peers[0].result(timeout=0)
+                                  .artifact_version],
+                      [p.graph for p in peers])
+
+    # drill 1: resume from the checkpoint before a corrupted newest one
+    mgr.close()
+    require(corrupt_checkpoint(session.checkpoint_dir, "bitflip", seed=0)
+            is not None and cm.latest_step() == last - SESSION_CKPT_EVERY,
+            f"the corrupted checkpoint did not fall back: "
+            f"{cm.latest_step()}")
+    mgr2 = SessionManager(pool, root)
+    t0 = time.perf_counter()
+    (resumed,) = mgr2.resume_all()
+    require(resumed.wait(600) == "done" and resumed.n_restores == 1,
+            f"the resumed session ended {resumed.status}")
+    resume_s = time.perf_counter() - t0
+    mgr2.close()
+    tail = [f.index for f in resumed.collected]
+    replay_from = (last - SESSION_CKPT_EVERY) * (SESSION_CHUNK
+                                                 // MD_RECORD_EVERY)
+    require(tail == list(range(replay_from, n_frames)),
+            f"the resumed tail re-emitted frames {tail}")
+    same = [(first[f.index], f) for f in resumed.collected
+            if f.artifact_version == first[f.index].artifact_version]
+    require(same, "no replayed frame ran on its first emission's weights")
+    scale = max(float(np.abs(a.e_tot).max()) for a, _ in same)
+    gaps = [float(np.abs(a.e_tot - b.e_tot).max()) / scale for a, b in same]
+    print(f"  resume after corrupting step {last}: restored step "
+          f"{last - SESSION_CKPT_EVERY}, frames {tail} re-emitted in "
+          f"{resume_s:.3f} s [{ident}]; e_tot gap against the first emission "
+          f"(rel. to the largest |e_tot|), {len(same)} frames on the same "
+          f"weights: {gaps}")
+    if max(gaps) > REPLAY_TRACE:
+        system = (resumed.species, None, resumed.mask, resumed.masses)
+        eng = refs[same[0][1].artifact_version].md_engine(scfg.md)
+        md_a8_split(torch, [(eng, session.state), (eng, resumed.state)],
+                    system, max(gaps), "replay vs first emission")
+
+    # drill 2: a stall past the watchdog's timeout on a w4a8 replica
+    live = [r for r in reps if r.accepting and r.tier == "w4a8"]
+    require(len(live) == 1, f"{len(live)} live w4a8 replicas")
+    stalled = live[0]
+    quarantine_s = []
+    plain_quarantine = pool._quarantine
+
+    def timed_quarantine(idx, error):
+        t = time.perf_counter()
+        plain_quarantine(idx, error)
+        quarantine_s.append(time.perf_counter() - t)
+    pool._quarantine = timed_quarantine
+    stalled.inject_stall(CLUSTER_STALL_S + 5)
+    pinned = RequestHandle(graphs[0], time.monotonic(),
+                           bucket_capacity=SERVER_BUCKETS[0])
+    require(stalled.try_submit(pinned), "the stalling replica refused")
+    others = [pool.submit(gr) for gr in graphs[1:4]]
+    t0 = time.monotonic()
+    stall_results = [h.result(timeout=CLUSTER_STALL_S + 60)
+                     for h in [pinned] + others]
+    t_resolved = time.monotonic() - t0
+    while (pool.stats()["guardrails"]["n_respawned"] < 1
+           and time.monotonic() - t0 < CLUSTER_STALL_S + 60):
+        time.sleep(0.05)
+    fresh = pool._replicas[stalled.replica_id]
+    snap = fresh.snapshot()
+    require(fresh is not stalled and snap["on_probation"]
+            and fresh.device == dev and fresh.engine is not stalled.engine,
+            f"no cold restart on probation: {snap}")
+    require(fresh.ready.wait(120), "the restarted replica never warmed up")
+    g = pool.stats()["guardrails"]
+    require(g["n_stalls_detected"] == 1 and g["n_quarantined"] == 1
+            and g["n_respawned"] == 1 and len(quarantine_s) == 1
+            and pinned.n_requeues >= 1
+            and all(np.isfinite(r.energy) for r in stall_results),
+            f"stall drill: {g}, pinned requeues {pinned.n_requeues}")
+    print(f"  stall drill: {CLUSTER_STALL_S + 5:.0f} s stall on replica "
+          f"{stalled.replica_id}, stall_timeout_s {CLUSTER_STALL_S}: its 4 "
+          f"requests resolved after {t_resolved:.3f} s on replicas "
+          f"{sorted({r.replica_id for r in stall_results})}; quarantine "
+          f"(expropriate, requeue, build the engine on {fresh.device}, "
+          f"start the replica) {quarantine_s[0]:.3f} s, then its warmup "
+          f"{fresh.warmup_s:.3f} s, on probation {CLUSTER_PROBATION_S} s "
+          f"[{ident}]")
+
+    # drill 3: a hair-trigger w4a8 replica escalates to w8a8
+    hair = GuardrailConfig(envelope=ForceEnvelope(
+        limits=tuple((c, 1e-9) for c in SERVER_BUCKETS)))
+    w8 = reps[2].engine
+    drill = ClusterPool([
+        QuantizedEngine.from_quantized(cfg, fresh.engine.qparams, serve,
+                                       device=dev, guardrails=hair),
+        QuantizedEngine.from_quantized(cfg, w8.qparams, w8.serve,
+                                       device=dev)],
+        ClusterConfig(max_batch=8, deadline_ms=10.0, warmup=False,
+                      max_escalations=1))
+    direct8 = QuantizedEngine.from_quantized(cfg, w8.qparams, w8.serve,
+                                             device=dev)
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    # one summation order for the backward's index_add on both sides
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with drill:
+            esc = drill.submit(graphs[0]).result(timeout=120)
+        d = direct8.infer_batch([graphs[0]])[0]
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    hops = [(e.from_tier, e.to_tier, e.reason) for e in esc.escalations]
+    print(f"  escalation drill: {hops}, served by replica {esc.replica_id};"
+          f" against a direct w8a8 call: energy {esc.energy - d.energy}, "
+          f"forces max |diff| {float(np.abs(esc.forces - d.forces).max())}"
+          f" [{ident}]")
+    require(hops == [("w4a8", "w8a8", "force_outlier")]
+            and esc.replica_id == 1 and esc.energy == d.energy
+            and np.array_equal(esc.forces, d.forces),
+            "the escalated result differs from a direct w8a8 call")
+    pool.close()
+
+    # the serve CLI's cluster flags once, counted
+    art = str(Path(tmp) / "w4a8_seed0.npz")
+    save_artifact(art, old_w4)
+    argv = ["--workload", "so3", "--server", "--artifact", art,
+            "--requests", "64", "--rate", "50", "--buckets", "16", "32",
+            "--max-batch", "8", "--replicas", "2", "--tiers",
+            "w4a8:2,w8a8:1", "--guardrails", "--stall-timeout",
+            str(CLUSTER_STALL_S), "--swap-artifact", swap_path,
+            "--md-session", "100"]
+    if dev.type != "cuda":
+        argv += ["--device", str(dev)]
+    try:
+        _, cli_launches = counted_run(lambda: cli.main(argv))
+    except SystemExit as exc:
+        raise SmokeFailure(f"the serve CLI exited with {exc.code}")
+    print(f"  CLI (--replicas --tiers --swap-artifact --md-session "
+          f"--stall-timeout) launches {cli_launches}")
+    require(all(cli_launches[k] > 0 for k in SO3_KERNELS),
+            f"the CLI's cluster replay did not run every kernel: "
+            f"{cli_launches}")
+    print(f"  phase 7 took {time.perf_counter() - t_phase:.1f} s [{ident}]")
+    return {**measured, "held": held}
 
 
 def main() -> int:
@@ -2036,16 +2655,24 @@ def main() -> int:
           f"buckets {SERVER_BUCKETS}, {SERVER_REQUESTS} requests at "
           f"{SERVER_RATE:.0f} req/s")
     t0 = time.perf_counter()
-    server, held = run_server(torch, dev, cfg, graphs)
+    server, held, single = run_server(torch, dev, cfg, graphs)
     print(f"  phase 6 took {time.perf_counter() - t0:.1f} s")
+    print("phase 7: the cluster (w4a8 x2, w8a8, fp32 on one card) and a "
+          f"checkpointed MD session, {SERVER_REQUESTS} requests at "
+          f"{SERVER_RATE:.0f} req/s, {SESSION_STEPS} MD steps")
+    cluster = run_cluster(torch, dev, cfg, single)
     for row in rows:
-        if row["name"] in held:
-            err, shapes = held[row["name"]]
-            row["max_abs_err"] = max(row["max_abs_err"], err)
-            row["so3_server_shapes"] = shapes
+        for key, h in (("so3_server_shapes", held),
+                       ("cluster_shapes", cluster["held"])):
+            if row["name"] in h:
+                err, shapes = h[row["name"]]
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                row[key] = shapes
         by_path = {"so3_sparse": so3[row["name"]],
                    "lm_decode": lm[row["name"]], "md": md[row["name"]],
-                   "so3_server": server[row["name"]]}
+                   "so3_server": server[row["name"]],
+                   "cluster": cluster["cluster"].get(row["name"], 0),
+                   "md_session": cluster["md_session"].get(row["name"], 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     require("jax" not in sys.modules and "repro" not in sys.modules,

@@ -1,0 +1,4 @@
+"""Fault-tolerant checkpoints: counterpart of ``repro.checkpoint``."""
+from repro_torch.checkpoint.manager import CheckpointError, CheckpointManager
+
+__all__ = ["CheckpointError", "CheckpointManager"]

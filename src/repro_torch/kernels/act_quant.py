@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import check_tensor, stream_of
+from repro_torch.kernels._launch import check_tensor, count_launch, stream_of
 from repro_torch.kernels.ref import act_quant_ref, kv_append_int8_ref
 
 __all__ = ["act_quant", "kv_append_int8", "elems_per_lane",
@@ -72,7 +72,7 @@ def act_quant(x: torch.Tensor):
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), m, k, dev.index,
         stream_of(dev))
     _build.check(err, entry)
-    act_quant.launches += 1
+    count_launch(act_quant)
     return q, scale
 
 
@@ -195,7 +195,7 @@ def kv_append_int8(k_new: torch.Tensor, v_new: torch.Tensor,
         k_new.data_ptr(), v_new.data_ptr(), *strides, *ptrs, B, heads,
         replicate, seq, hd, cur_index, dev, stream_of(k_new.device))
     _build.check(err, entry)
-    kv_append_int8.launches += 1
+    count_launch(kv_append_int8)
 
 
 kv_append_int8.launches = 0

@@ -42,7 +42,7 @@ from typing import Dict, Iterator, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import check_tensor, stream_of
+from repro_torch.kernels._launch import check_tensor, count_launch, stream_of
 from repro_torch.kernels.ref import decode_attention_int8kv_ref
 
 __all__ = ["decode_attention_int8kv", "n_splits", "split_plan",
@@ -146,7 +146,7 @@ def decode_attention_int8kv(q: torch.Tensor, k_q: torch.Tensor,
         s, n_valid, chunk, run, splits, float(softmax_scale), dev.index,
         stream)
     _build.check(err, "repro_decode_attention_int8kv")
-    decode_attention_int8kv.launches += 1
+    count_launch(decode_attention_int8kv)
     return out
 
 

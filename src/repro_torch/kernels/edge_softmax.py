@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import check_tensor, stream_of
+from repro_torch.kernels._launch import check_tensor, count_launch, stream_of
 from repro_torch.kernels.ref import edge_softmax_ref
 
 __all__ = ["edge_softmax_fused", "MAX_F", "MAX_W", "CHUNK",
@@ -91,7 +91,7 @@ def edge_softmax_fused(q_scaled: torch.Tensor, k: torch.Tensor,
         edge_mask.data_ptr(), layout_mask.data_ptr(), out.data_ptr(), n,
         cap, ec, f, w, dev.index, stream_of(dev))
     _build.check(err, "repro_edge_softmax")
-    edge_softmax_fused.launches += 1
+    count_launch(edge_softmax_fused)
     return out
 
 

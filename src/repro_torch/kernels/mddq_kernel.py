@@ -43,7 +43,7 @@ import torch
 
 from repro_torch.core.quantizers import f32, log_magnitude_bounds
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import check_tensor, stream_of
+from repro_torch.kernels._launch import check_tensor, count_launch, stream_of
 from repro_torch.kernels.ref import _norm3, mddq_encode_ref
 
 __all__ = ["mddq_encode_kernel", "seed_half_width", "z_band",
@@ -107,8 +107,8 @@ def mddq_encode_kernel(v: torch.Tensor, codebook: torch.Tensor, *,
             splits, levels, f32(m_min), f32(m_max), lo, f32(hi - lo),
             dev.index, stream_of(dev))
         _build.check(err, "repro_mddq_encode")
-        mddq_encode_kernel.full_launches += 1
-    mddq_encode_kernel.launches += 1
+        count_launch(mddq_encode_kernel, "full_launches")
+    count_launch(mddq_encode_kernel)
     return idx, mag
 
 

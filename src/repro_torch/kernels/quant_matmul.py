@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import check_tensor, stream_of
+from repro_torch.kernels._launch import check_tensor, count_launch, stream_of
 from repro_torch.kernels.ref import (act_quant_ref, w4a8_matmul_ref,
                                      w8a8_matmul_ref)
 
@@ -98,7 +98,7 @@ def w8a8_matmul(a_q: torch.Tensor, a_scale: torch.Tensor, w_q: torch.Tensor,
     _check_int8_acts(a_q, a_scale)
     out = _launch("repro_qmm_w8a8", (a_q, a_scale), w_q, w_scale,
                   w_q.shape[1])
-    w8a8_matmul.launches += 1
+    count_launch(w8a8_matmul)
     return out
 
 
@@ -112,7 +112,7 @@ def w4a8_matmul(a_q: torch.Tensor, a_scale: torch.Tensor,
     _check_int8_acts(a_q, a_scale)
     out = _launch("repro_qmm_w4a8", (a_q, a_scale), w_packed, w_scale,
                   w_packed.shape[1] * 2)
-    w4a8_matmul.launches += 1
+    count_launch(w4a8_matmul)
     return out
 
 
@@ -125,7 +125,7 @@ def w8a8_matmul_f32a(x: torch.Tensor, w_q: torch.Tensor,
     _weight_dtype("w_q", w_q, torch.int8)
     check_tensor("x", x, torch.float32, tuple(x.shape), x.device)
     out = _launch("repro_qmm_w8a8_f32a", (x,), w_q, w_scale, w_q.shape[1])
-    w8a8_matmul_f32a.launches += 1
+    count_launch(w8a8_matmul_f32a)
     return out
 
 
@@ -138,7 +138,7 @@ def w4a8_matmul_f32a(x: torch.Tensor, w_packed: torch.Tensor,
     check_tensor("x", x, torch.float32, tuple(x.shape), x.device)
     out = _launch("repro_qmm_w4a8_f32a", (x,), w_packed, w_scale,
                   w_packed.shape[1] * 2)
-    w4a8_matmul_f32a.launches += 1
+    count_launch(w4a8_matmul_f32a)
     return out
 
 

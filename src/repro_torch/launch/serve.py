@@ -28,15 +28,29 @@ percentiles, flush reasons and dispatch counts:
 
 ``--save-artifact path.npz`` packs the engine's quantized weights (the
 JAX package's format: either package loads the other's files);
-``--guardrails`` withholds non-finite results with a typed error. The
-cluster, precision-tier, hot-swap, MD-session, watchdog and obs-export
-flags of the JAX launcher are not ported yet (ROADMAP.md): they exit
-with an error.
+``--guardrails`` withholds non-finite results with a typed error. With
+``--replicas N`` (or ``--tiers``, ``--swap-artifact``, ``--md-session``)
+the replay goes through the multi-replica pool (``repro_torch.cluster``;
+on one card every replica is on ``cuda:0`` with its own stream):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload so3 \\
+        --server --replicas 2 --tiers w4a8:2,w8a8:1,fp32:1 --guardrails \\
+        --stall-timeout 30 --md-session 400 [--swap-artifact new.npz]
+
+``--tiers`` builds a mixed-precision fleet whose flagged results re-run
+one tier up, ``--swap-artifact`` fires a rolling weight swap halfway
+through the replay, ``--md-session N`` streams a checkpointed N-step MD
+trajectory through the same replicas (``repro_torch.sessions``) and
+``--stall-timeout`` arms the pool's stall watchdog. The obs-export flags
+of the JAX launcher (``--metrics-out``, ``--trace-out``,
+``--alerts-out``, ``--export-interval``, ``--health-interval``) are not
+ported yet (ROADMAP.md): they exit with an error.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import threading
 import time
 from typing import Optional
 
@@ -58,12 +72,11 @@ from repro_torch.serving import QuantizedEngine, ServeConfig, random_graphs
 __all__ = ["ServedLM", "DecodeRun", "lm_config", "build_lm", "decode",
            "greedy_decode", "run_lm", "run_so3", "run_so3_server", "main"]
 
-# JAX launcher flags whose subsystems the port does not have yet, with the
+# JAX launcher flags whose subsystem (the rest of obs: SLOs, anomaly
+# detection, exporters, timelines) the port does not have yet, with the
 # value that means "off"
-UNPORTED = {"replicas": 1, "tiers": None, "swap_artifact": None,
-            "md_session": 0, "stall_timeout": None, "metrics_out": None,
-            "trace_out": None, "alerts_out": None, "export_interval": None,
-            "health_interval": None}
+UNPORTED = {"metrics_out": None, "trace_out": None, "alerts_out": None,
+            "export_interval": None, "health_interval": None}
 
 
 @dataclasses.dataclass
@@ -247,9 +260,10 @@ def run_so3(args) -> None:
 
 
 def run_so3_server(engine: QuantizedEngine, args):
-    """Poisson traffic through the micro-batching scheduler: latency
-    percentiles, flush reasons and dispatch counts. Returns the
-    replay's ``TrafficResult``."""
+    """Poisson traffic through the micro-batching scheduler — or, with
+    ``--replicas``/``--tiers``/``--swap-artifact``/``--md-session``,
+    through the cluster pool: latency percentiles, flush reasons and
+    dispatch counts. Returns the replay's ``TrafficResult``."""
     mid = (args.min_atoms + args.max_atoms) // 2
     if mid + 1 > args.max_atoms:      # degenerate range: one size class
         size_mix = (SizeClass(args.min_atoms, args.max_atoms, 1.0),)
@@ -261,6 +275,9 @@ def run_so3_server(engine: QuantizedEngine, args):
         n_species=engine.model_cfg.n_species, density=args.density,
         seed=args.seed))
     max_batch = min(args.sched_batch, engine.serve.max_batch)
+    if (args.replicas > 1 or args.swap_artifact or args.md_session
+            or args.tiers):
+        return _run_cluster(engine, args, traffic, max_batch)
     sched_cfg = SchedulerConfig(max_batch=max_batch,
                                 deadline_ms=args.deadline_ms,
                                 max_queue=args.max_queue)
@@ -272,6 +289,133 @@ def run_so3_server(engine: QuantizedEngine, args):
         stats = sched.stats()
     _print_server_summary(res, stats, args, max_batch)
     return res
+
+
+def _run_cluster(engine: QuantizedEngine, args, traffic, max_batch: int):
+    """The replay through ``ClusterPool`` (one engine per replica; on the
+    CPU with ``--device cpu``), with the rolling swap fired halfway and
+    the MD session beside it, as the JAX launcher does."""
+    from repro_torch.cluster import ClusterConfig, ClusterPool
+    cluster = ClusterConfig(n_replicas=args.replicas, max_batch=max_batch,
+                            deadline_ms=args.deadline_ms,
+                            max_queue=args.max_queue,
+                            stall_timeout_s=args.stall_timeout)
+    device = "cpu" if engine.device.type == "cpu" else None
+    guardrails = engine.guardrails if args.guardrails else None
+    if args.tiers:
+        # mixed-precision fleet: flagged w4a8 results re-run one tier up
+        # (fresh random weights shared across the tiers — a demo fleet,
+        # like the non-artifact engine)
+        plan = {}
+        for part in args.tiers.split(","):
+            t, _, k = part.partition(":")
+            plan[t.strip()] = int(k or 1)
+        pool = ClusterPool.from_tiers(
+            engine.model_cfg, serve=engine.serve, tier_plan=plan,
+            cluster=cluster, seed=args.seed, guardrails=guardrails,
+            device=device)
+    else:
+        pool = ClusterPool.from_quantized(
+            engine.model_cfg, engine.qparams, engine.serve, cluster,
+            fp32_nbytes=engine.memory_report()["fp32_bytes"],
+            artifact_version=engine.artifact_version, guardrails=guardrails,
+            device=device)
+    swap_report = {}
+    swap_thread = session = session_mgr = None
+    with pool:
+        s0 = pool.stats()
+        print(f"cluster: {pool.n_replicas} replicas on "
+              f"{[r['device'] for r in s0['replicas']]}, parallel "
+              f"warmup {s0['warmup_s']:.2f}s")
+        pool.reset_stats()
+        if args.md_session:
+            session, session_mgr = _start_md_session(pool, engine, args)
+        if args.swap_artifact:
+            # fire the rolling swap halfway through the replay; a failure
+            # surfaces after the replay, not in the timer thread
+            half = traffic[len(traffic) // 2][0]
+
+            def do_swap():
+                try:
+                    swap_report.update(pool.swap_artifact(args.swap_artifact))
+                except BaseException as e:
+                    swap_report["error"] = e
+            swap_thread = threading.Timer(half, do_swap)
+            swap_thread.start()
+        res = run_open_loop(pool, traffic, rate_rps=args.rate)
+        if swap_thread is not None:
+            # the swap warms each replacement before the exchange, which
+            # can outlast a short replay: wait, so the report is real
+            swap_thread.join()
+        if session is not None:
+            session.wait()
+            session_mgr.close()
+        stats = pool.stats()
+    _print_server_summary(res, stats, args, max_batch)
+    if session is not None:
+        print(f"md session: {session.steps_done} steps in "
+              f"{len(session.collected)} frames beside the replay, "
+              f"{session.n_checkpoints} checkpoints "
+              f"({session.checkpoint_dir}), artifact versions "
+              f"{sorted({f.artifact_version for f in session.collected})}")
+    print(f"routing: {stats['router']['routed_per_replica']} "
+          f"(shed {stats['n_shed']}, requeued "
+          f"{stats['router']['n_requeued']})")
+    if args.tiers or args.guardrails or args.stall_timeout:
+        g = stats["guardrails"]
+        print(f"tiers: {stats['tiers']}  guardrails: flagged "
+              f"{g['n_flagged']}, escalated {g['n_escalated']}, "
+              f"quarantined {g['n_quarantined']}, stalls detected "
+              f"{g['n_stalls_detected']}")
+    if swap_report.get("error") is not None:
+        raise SystemExit(
+            f"hot swap FAILED: {swap_report['error']} (traffic was "
+            "unaffected — surviving weights kept serving)")
+    if swap_report:
+        pauses = [f"{r['pause_s'] * 1e3:.2f}ms"
+                  for r in swap_report["replicas"]]
+        print(f"hot swap -> {swap_report['version_tag']}: per-replica "
+              f"serve pauses {pauses} (warmed before swap; zero requests "
+              "dropped)")
+    return res
+
+
+def _start_md_session(pool, engine: QuantizedEngine, args):
+    """``--md-session N``: stream a checkpointed MD trajectory through the
+    pool while the one-shot replay runs. Returns (session, manager); the
+    caller waits and closes after the replay so both tenants share the
+    replicas."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.md.engine import MDConfig
+    from repro_torch.sessions import SessionConfig, SessionManager
+
+    n = max(args.min_atoms, (args.min_atoms + args.max_atoms) // 2)
+    rng = np.random.default_rng(args.seed + 1)
+    side = (n / (args.density or 0.1)) ** (1.0 / 3.0)
+    species = rng.integers(0, engine.model_cfg.n_species,
+                           n).astype(np.int32)
+    coords = rng.uniform(0, side, size=(n, 3)).astype(np.float32)
+    masses = np.full(n, 12.0, np.float32)
+    record = min(50, args.md_session)
+    chunk = 2 * record if 2 * record <= args.md_session else record
+    # the engine's MDDQ kernel carries over, so a chunk runs the kernels
+    # a flush runs
+    scfg = SessionConfig(
+        n_steps=args.md_session, chunk_steps=chunk, record_every=record,
+        checkpoint_every=3,
+        md=MDConfig(mode=engine.serve.mode, record_every=record,
+                    mddq_kernel=engine.serve.mddq_kernel))
+    root = tempfile.mkdtemp(prefix="serve_md_session_")
+    mgr = SessionManager(pool, root)
+    session = mgr.start(species, coords, masses, config=scfg,
+                        seed=args.seed)
+    print(f"md session: {args.md_session} NVE steps ({n} atoms, "
+          f"{scfg.n_chunks} chunks of {chunk}) streaming beside the "
+          f"replay; checkpoints -> {session.checkpoint_dir}")
+    return session, mgr
 
 
 def _print_server_summary(res, stats, args, max_batch) -> None:
@@ -352,12 +496,24 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--save-artifact",
                     help="pack the engine's quantized weights to this .npz "
                          "and continue")
-    # the JAX launcher's cluster and obs flags: not ported yet
-    ap.add_argument("--replicas", type=int, default=1)
-    ap.add_argument("--tiers")
-    ap.add_argument("--swap-artifact")
-    ap.add_argument("--md-session", type=int, default=0)
-    ap.add_argument("--stall-timeout", type=float)
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve --server traffic through a pool of this "
+                         "many replicas (one card: all on cuda:0, one "
+                         "stream each)")
+    ap.add_argument("--tiers",
+                    help="mixed-precision fleet, e.g. "
+                         "w4a8:2,w8a8:1,fp32:1: flagged results re-run "
+                         "one tier up (with --guardrails)")
+    ap.add_argument("--swap-artifact",
+                    help="rolling zero-downtime weight swap to this packed "
+                         "artifact, fired halfway through the replay")
+    ap.add_argument("--md-session", type=int, default=0,
+                    help="stream a checkpointed MD session of this many "
+                         "NVE steps through the pool beside the replay")
+    ap.add_argument("--stall-timeout", type=float,
+                    help="pool watchdog: quarantine a replica busy on one "
+                         "unit of work longer than this (seconds)")
+    # the JAX launcher's obs-export flags: not ported yet
     ap.add_argument("--metrics-out")
     ap.add_argument("--trace-out")
     ap.add_argument("--alerts-out")
@@ -376,8 +532,8 @@ def main(argv=None) -> None:
     for name, off in UNPORTED.items():
         if getattr(args, name) != off:
             ap.error(f"--{name.replace('_', '-')} is not ported yet: the "
-                     "port has no cluster, session or obs-export layer "
-                     "(see ROADMAP.md)")
+                     "port has no SLO, anomaly, export or timeline layer "
+                     "(the obs slice, see ROADMAP.md)")
     if args.workload == "so3":
         run_so3(args)
         return

@@ -298,8 +298,11 @@ class QuantizedEngine:
         return total
 
     def _sync(self) -> None:
+        """Wait for this engine's own work: the current stream of its
+        device (a cluster replica's stream), not the whole card, which
+        other replicas share."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _on_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)

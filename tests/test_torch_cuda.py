@@ -17,7 +17,10 @@ order than the CPU), and so are 10 MD steps (w8a8, MDDQ off) in
 coordinates and total energy; the device edge list bit for bit. A packed
 artifact loads onto the card byte for byte, and the scheduler's results
 there match the CPU plain path on the same artifact to 1e-4 (the engine's
-tolerance).
+tolerance). A 2-replica cluster pool on cuda:0 answers as the direct
+engine (energies equal, forces to 1e-5 of the largest |force|), each
+replica's worker on its own stream; a rolling swap under traffic drops
+nothing; an MD session's failed-over chunk re-emits every frame index.
 """
 import numpy as np
 import pytest
@@ -643,3 +646,137 @@ def test_scheduler_on_card_matches_cpu_plain_path(cuda, tmp_path):
     for a, b in zip(served, plain):
         assert abs(a.energy - b.energy) <= 1e-4 * max(abs(b.energy), 1.0)
         assert float(np.abs(a.forces - b.forces).max()) <= 1e-4 * f_scale
+
+
+# -- the cluster and MD sessions on one card ---------------------------------
+
+def _card_pool(cuda, n=2, **kw):
+    from repro_torch.cluster import ClusterConfig, ClusterPool
+    return ClusterPool.from_config(
+        SERVER_CFG, serve=SERVER_SERVE, device=cuda,
+        cluster=ClusterConfig(n_replicas=n, max_batch=8, deadline_ms=5.0,
+                              **kw))
+
+
+def test_cluster_on_card_matches_direct_engine(cuda):
+    """A 2-replica pool on cuda:0 answers as the direct engine on the
+    same weights: energies equal, forces within 1e-5 of the largest
+    |force| (the backward's atomic sums run in any order)."""
+    graphs = [g for _, g in _server_traffic(16)]
+    with _card_pool(cuda) as pool:
+        direct = QuantizedEngine.from_quantized(
+            SERVER_CFG, pool._replicas[0].engine.qparams, SERVER_SERVE,
+            device=cuda)
+        served = pool.infer(graphs, timeout_s=60)
+    for g, r in zip(graphs, served):
+        (d,) = direct.infer_batch([g])
+        f_scale = max(float(np.abs(d.forces).max()), 1e-12)
+        assert r.energy == d.energy
+        assert float(np.abs(r.forces - d.forces).max()) <= 1e-5 * f_scale
+
+
+def test_cluster_replicas_launch_on_their_own_streams(cuda):
+    """Each replica's worker runs its flushes on its own stream: two
+    replicas of one card, two distinct streams, neither the default."""
+    from repro_torch.server.scheduler import RequestHandle
+    seen = {}
+    with _card_pool(cuda) as pool:
+        for rep in pool._replicas:
+            plain = rep.engine.infer_batch
+
+            def recording(graphs, on_flag=None, rid=rep.replica_id,
+                          plain=plain):
+                seen.setdefault(rid, set()).add(
+                    torch.cuda.current_stream(cuda).cuda_stream)
+                return plain(graphs, on_flag=on_flag)
+            rep.engine.infer_batch = recording
+        g = _server_traffic(1)[0][1]
+        for rep in pool._replicas:
+            h = RequestHandle(g, 0.0, bucket_capacity=16 if g.n_atoms <= 16
+                              else 32)
+            assert rep.try_submit(h)
+            h.result(timeout=60)
+        streams = {r.replica_id: r.stream.cuda_stream for r in pool._replicas}
+    assert seen == {rid: {s} for rid, s in streams.items()}
+    assert len(set(streams.values())) == 2
+    assert torch.cuda.default_stream(cuda).cuda_stream not in streams.values()
+
+
+def test_cluster_on_card_tallies_launches_by_role(cuda):
+    """The replicas' warmup runs and flushes launch the SO3 kernels on
+    the card, each tallied under its role: every launch of the window
+    belongs to a ``warmup:`` or ``flush:`` role of the pool's tier."""
+    from repro_torch.kernels import _launch
+    counters = (w8a8_matmul_f32a, w4a8_matmul_f32a, edge_softmax_fused,
+                mddq_encode_kernel)
+    before = [c.launches for c in counters]
+    _launch.reset_role_launches()
+    with _card_pool(cuda) as pool:
+        for rep in pool._replicas:
+            assert rep.ready.wait(120)
+        pool.infer([g for _, g in _server_traffic(8)], timeout_s=60)
+        roles = _launch.role_launches()
+    mode = SERVER_SERVE.mode
+    assert set(roles) == {f"warmup:{mode}", f"flush:{mode}"}
+    for c, b in zip(counters, before):
+        assert sum(t.get(c.__name__, 0) for t in roles.values()) \
+            == c.launches - b
+    assert all(roles[f"flush:{mode}"].get(c.__name__, 0) > 0
+               for c in counters)
+
+
+def test_cluster_rolling_swap_on_card_drops_nothing(cuda, tmp_path):
+    import threading
+    import time
+    path = str(tmp_path / "v2.npz")
+    save_artifact(path, QuantizedEngine.from_config(
+        SERVER_CFG, serve=SERVER_SERVE, seed=99, device="cpu"))
+    graphs = [g for _, g in _server_traffic(64)]
+    done, errors = [], []
+    with _card_pool(cuda) as pool:
+        def client():
+            for g in graphs:
+                try:
+                    done.append(pool.submit(g).result(timeout=60))
+                except BaseException as e:     # every request must land
+                    errors.append(e)
+                time.sleep(0.005)
+        t = threading.Thread(target=client)
+        t.start()
+        report = pool.swap_artifact(path)
+        t.join()
+        after = pool.infer(graphs[:4], timeout_s=60)
+    assert not errors and len(done) == len(graphs)
+    assert len(report["replicas"]) == 2
+    assert {r.artifact_version for r in after} == {report["version_tag"]}
+    assert {r.artifact_version for r in done} <= {"", report["version_tag"]}
+
+
+def test_session_chunk_failed_over_on_card_reemits_frames(cuda, tmp_path):
+    """An in-flight kill of the session's replica: the chunk fails over
+    and the trajectory streams every frame index once, in order."""
+    from repro_torch.md import MDConfig
+    from repro_torch.sessions import (FaultInjector, FaultSpec,
+                                      SessionConfig, SessionManager)
+    rng = np.random.default_rng(17)
+    n = 12
+    species = rng.integers(0, SERVER_CFG.n_species, n).astype(np.int32)
+    coords = rng.uniform(0, (n / 0.1) ** (1 / 3), (n, 3)).astype(np.float32)
+    with _card_pool(cuda) as pool:
+        faults = FaultInjector([FaultSpec(kind="kill_replica", at_chunk=2,
+                                          mode="in_flight")], pool)
+        mgr = SessionManager(pool, str(tmp_path), faults=faults)
+        s = mgr.start(species, coords, np.full(n, 12.0, np.float32), seed=4,
+                      config=SessionConfig(
+                          n_steps=100, chunk_steps=20, record_every=10,
+                          checkpoint_every=2,
+                          md=MDConfig(mode="w4a8", dt_fs=0.25,
+                                      record_every=10, mddq_kernel=True)))
+        assert s.wait(300) == "done"
+        st = pool.stats()
+        mgr.close()
+    assert [f.index for f in s.collected] == list(range(10))
+    assert all(np.isfinite(f.e_tot).all() for f in s.collected)
+    assert faults.counts()["kill_replica"] == 1
+    assert st["n_live"] == 1
+    assert st["chunks"]["n_requeued"] + s.n_retries >= 1

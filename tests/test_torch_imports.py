@@ -56,6 +56,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.launch.serve import build_lm
     from repro_torch.models.lm.attention import init_kv_cache
     from repro_torch.models.lm.transformer import init_cache, init_lm
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.cluster import ClusterPool
     from repro_torch.server import load_engine
     from repro_torch.weights import (lm_params_from_numpy, params_from_numpy,
                                      qparams_from_numpy)
@@ -74,7 +76,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                   lambda: lm_params_from_numpy({}),
                   lambda: build_lm(lm_cfg),
                   lambda: qparams_from_numpy({}),
-                  lambda: load_engine("no_such_artifact.npz")):
+                  lambda: load_engine("no_such_artifact.npz"),
+                  lambda: ClusterPool.from_config(cfg),
+                  lambda: ClusterPool.from_tiers(cfg),
+                  lambda: ClusterPool.from_artifact("no_such_artifact.npz"),
+                  lambda: ClusterPool.from_quantized(cfg, {}, None),
+                  lambda: CheckpointManager(".").restore(0, like={})):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
     with pytest.raises(RuntimeError):

@@ -374,10 +374,10 @@ def test_serve_cli_runs_on_the_cpu(capsys, monkeypatch):
     b = serve.greedy_decode(lm, 2, 8, 5)
     assert a.tokens.shape == (2, 5) and torch.equal(a.tokens, b.tokens)
     assert a.cache_bytes == 2 * 2 * 2 * 8 * (8 + 4)   # L, k|v, B, S, hd+4
-    # the CLI refuses what the port lacks, and its SO3 workload keeps the
-    # device rule: no card and no --device cpu raises
+    # the CLI refuses what the port lacks (the obs exporters), and its SO3
+    # workload keeps the device rule: no card and no --device cpu raises
     with pytest.raises(SystemExit):
-        serve.main(["--workload", "so3", "--replicas", "2"])
+        serve.main(["--workload", "so3", "--metrics-out", "m.prom"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is unavailable"):
         serve.main(["--workload", "so3"])

@@ -814,8 +814,8 @@ class TestCLI:
             == ("dense", True)
         assert second.dispatch_stats["sparse"] == 0
 
-    @pytest.mark.parametrize("flag", [["--replicas", "2"],
-                                      ["--tiers", "w4a8:1,fp32:1"],
+    @pytest.mark.parametrize("flag", [["--metrics-out", "m.prom"],
+                                      ["--alerts-out", "a.jsonl"],
                                       ["--trace-out", "t.jsonl"]])
     def test_unported_flags_exit_naming_roadmap(self, capsys, flag):
         with pytest.raises(SystemExit) as ei:
