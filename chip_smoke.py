@@ -129,6 +129,31 @@
    and warmup per replica, the cold restart's seconds, the session's
    steps/s and ns/day, checkpoint seconds and the largest flush's device
    share, each beside the card's name and power limit.
+8. Trains the SO3 force field on the card through
+   ``repro_torch.training`` at the paper's width, as
+   ``python -m repro_torch.training.pipeline --fast`` runs it: the
+   azobenzene MD set sampled on the card (96 + 32 frames, numpy seed 0),
+   fp32 15 epochs at batch 32, then gaq_w4a8 QAT (12-bit codebook) for 6
+   epochs, 2 of them warm-up, with the LEE term over 2 rotations; then
+   ``evaluate`` and ``lee_eval`` (4 x 4) of both, ``nve_eval`` (400
+   steps) of gaq_w4a8, and the trained weights served through
+   ``QuantizedEngine`` (w4a8, sparse, MDDQ kernel, bucket 32). Checks:
+   finite losses and a falling fp32 loss; the launches of every counted
+   window (K4 only: none in fp32 or a warm-up step, L x (1 + 2 x 2) per
+   full QAT step, L per quantized evaluate batch and per force call, and
+   13/3/3/3 per sparse dispatch when serving); one fp32 and one full QAT
+   step on the card against the CPU (loss to 1e-5 / 1e-4 relative, every
+   gradient leaf to 1e-4 of its largest |g|; a larger gap only with A8
+   codes or clip gates or MDDQ codes that moved, ``moved_qat_sites``,
+   and then the card's step with the CPU's codes and gates pinned,
+   ``qat_sites(pin=...)``, held to the same tolerances);
+   K4's codes against its plain version at the training batch (12,288
+   vectors x 4,096 codewords) and at a LEE force call; the serving
+   kernels at the served batch (``check_kernel_calls``); the parameter
+   file bit for bit; the phase within 180 s. Prints ms per fp32, warm-up
+   and full QAT step, a full step's device busy and idle share, K4's
+   device time at the training shape, the peak device memory, the MAEs
+   in meV, the LEEs, the NVE drift and the served-vs-QAT gap (reported).
 
 Phase 2 also holds the act-quant kernel bit for bit (float32 and bf16),
 its KV entry (the decode's whole int8 KV write) byte for byte over a
@@ -202,6 +227,13 @@ SESSION_STEPS, SESSION_CHUNK, SESSION_CKPT_EVERY = 400, 100, 2
 # largest |e_tot|: held to 1e-2, and a gap above REPLAY_TRACE is traced
 # to moved A8 codes (md_a8_split)
 REPLAY_TRACE = 1e-4
+# phase 8: the training pipeline's --fast run (training/pipeline.py): 96
+# training and 32 test frames of the azobenzene MD set (numpy seed 0),
+# batch 32; fp32 15 epochs, then gaq_w4a8 (12-bit codebook) 6 epochs, 2 of
+# them warm-up; NVE 400 steps; the phase's limit in seconds
+TRAIN_FRAMES, TEST_FRAMES, TRAIN_BATCH = 96, 32, 32
+FP32_EPOCHS, QAT_EPOCHS, QAT_WARMUP, NVE_STEPS = 15, 6, 2, 400
+TRAIN_PHASE_S = 180.0
 TRUNK_W8 = (64, 192)         # wq | wk | wm
 TRUNK_W4 = (64, 32)          # wa | wb
 OTHER_W8 = {"w_upd": (64, 64), "w_vnorm": (16, 64), "ro_w1": (80, 64),
@@ -282,6 +314,24 @@ def device_ms(torch, fn, reps: int = 20):
     """Device time per call of what ``fn`` launches (torch.profiler);
     None when the profiler records no device time."""
     return device_profile(torch, fn, reps)[0]
+
+
+def queued_device_ms(torch, fn, reps: int = 50) -> float:
+    """Device time per call of what ``fn`` launches: CUDA events around
+    ``reps`` calls enqueued behind a sleep kernel, so the device runs
+    them back to back whatever the host's launch gaps (warmed up first;
+    the ~10 ms sleep covers 50 enqueues of a few tens of us each)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound(n_bytes: float, n_ops: float, ops_per_s: float,
@@ -2588,6 +2638,396 @@ def run_cluster(torch, dev, cfg, single):
     return {**measured, "held": held}
 
 
+# --- phase 8: training on the card -------------------------------------------
+
+@contextlib.contextmanager
+def qat_sites(pin=None):
+    """Inside the block, every quantization site of the QAT model
+    (``models/so3krates.py``) in call order, as CPU tensors: ("a8", x /
+    scale) for A8 activations and the baselines' INT8 vectors, ("code",
+    codes) for MDDQ's direction and magnitude codes. With ``pin`` (sites
+    of another run of the same step, in the same order) each site takes
+    the pinned x / scale or codes instead of its own, gradients as
+    before: what is left of a gap between the runs is then arithmetic."""
+    import torch
+    from repro_torch.core import quantizers as q
+    from repro_torch.core.mddq import fake_quant_from_codes, mddq_encode
+    from repro_torch.core.ste import round_ste
+    from repro_torch.models import so3krates as so3
+    rec, pins = [], iter(pin or ())
+    qact, qvec = so3._qact, so3._qvec
+
+    def a8(x, scale, bits, nested):
+        y = x / scale
+        rec.append(("a8", y.detach().cpu()))
+        if pin is None:
+            return None
+        y = y + (next(pins)[1].to(y.device) - y).detach()
+        m = q.qmax(bits)
+        return round_ste(q.clip(y, -m, m), nested) * scale
+
+    def rec_act(x, cfg, degrees=None, nested=False):
+        if cfg.quant != "none":
+            out = a8(x, so3._act_scale(x, cfg, degrees), cfg.a_bits, nested)
+            if out is not None:
+                return out
+        return qact(x, cfg, degrees, nested)
+
+    def rec_vec(v, cfg, codebook, nested=False):
+        if cfg.quant == "gaq_w4a8" and not cfg.freeze_vec_quant:
+            mc = cfg.mddq()
+            with torch.no_grad():
+                rec.extend(("code", c.cpu()) for c in mddq_encode(
+                    v.detach(), mc, codebook))
+            if pin is not None:
+                idx, mag = (next(pins)[1].to(v.device).long()
+                            for _ in range(2))
+                m_q = q.dequantize_log_magnitude(mag, mc.magnitude_bits,
+                                                 mc.m_min, mc.m_max)
+                return fake_quant_from_codes(v, mc, codebook[idx],
+                                             m_q[..., None], nested)
+        elif cfg.quant in ("naive_int8", "degree_quant"):
+            out = a8(v, so3._mol_scale(v.detach(), 8, 3), 8, nested)
+            if out is not None:
+                return out
+        return qvec(v, cfg, codebook, nested)
+    so3._qact, so3._qvec = rec_act, rec_vec
+    try:
+        yield rec
+    finally:
+        so3._qact, so3._qvec = qact, qvec
+
+
+def moved_qat_sites(a_sites, b_sites, qmax=127):
+    """Per site, the entries whose A8 code or clip gate (1 inside, 0.5
+    exactly on +-qmax, 0 beyond: the straight-through gradient) or MDDQ
+    code differ between two runs of the same step."""
+    moved = []
+    for (kind, a), (_, b) in zip(a_sites, b_sites):
+        if kind == "a8":
+            def sig(y):
+                g = y.abs()
+                return (y.clamp(-qmax, qmax).round(),
+                        (g < qmax).float() + 0.5 * (g == qmax).float())
+            (ca, ga), (cb, gb) = sig(a), sig(b)
+            moved.append(int(((ca != cb) | (ga != gb)).sum()))
+        else:
+            moved.append(int((a != b).sum()))
+    return moved
+
+
+@contextlib.contextmanager
+def k4_inputs():
+    """The MDDQ encode calls of the QAT model inside the block (through
+    ``core.codebook.nearest_code``): [(v, codebook)], cloned."""
+    from repro_torch.core import codebook
+    plain, calls = codebook.mddq_encode_kernel, []
+
+    def recording(v, cb, **kw):
+        calls.append((v.detach().clone(), cb))
+        return plain(v, cb, **kw)
+    codebook.mddq_encode_kernel = recording
+    try:
+        yield calls
+    finally:
+        codebook.mddq_encode_kernel = plain
+
+
+def only_k4(counts, n, what):
+    """``counts`` has n band-search MDDQ launches and nothing else."""
+    others = {k: v for k, v in counts.items()
+              if k != "mddq_encode_kernel" and v}
+    require(counts["mddq_encode_kernel"] == n and not others,
+            f"{what}: {counts['mddq_encode_kernel']} K4 launches (expected "
+            f"{n}) and {others}")
+
+
+def step_gap(torch, a, b):
+    """(loss gap / |loss|, {leaf: gap / the leaf's largest |g|}) between
+    two (loss, aux, grads) of one step, b the reference."""
+    (la, _, ga), (lb, _, gb) = a, b
+    rel = abs(float(la) - float(lb)) / abs(float(lb))
+    return rel, {k: float((ga[k].cpu() - gb[k].cpu()).abs().max()
+                          / max(float(gb[k].abs().max()), 1e-30))
+                 for k in gb}
+
+
+def run_training(torch, dev):
+    """Phase 8: sample the azobenzene set on the card, train fp32 at the
+    paper's width, QAT-finetune gaq_w4a8 with warm-up and the LEE term,
+    evaluate, run NVE on the trained model and serve its weights, with
+    the launch gates per step kind; the card against the CPU on one fp32
+    and one full QAT step; K4 and the serving kernels at this path's
+    shapes; the parameter file bit for bit."""
+    import tempfile
+    from repro_torch.core.codebook import make_codebook
+    from repro_torch.core.lee import random_rotations
+    from repro_torch.data.synthetic_md import sample_dataset_md
+    from repro_torch.kernels.mddq_kernel import mddq_encode_kernel
+    from repro_torch.kernels.ref import mddq_encode_ref
+    from repro_torch.models import so3krates as so3
+    from repro_torch.serving import Graph, QuantizedEngine, ServeConfig
+    from repro_torch.training import pipeline
+    from repro_torch.training import so3_trainer as tr
+    t_phase = time.perf_counter()
+    ident = gpu_identity()
+    torch.cuda.reset_peak_memory_stats(dev)
+    total = dict.fromkeys([c.__name__ for c in kernel_counters()], 0)
+
+    def counted(fn):
+        out, n = counted_run(fn)
+        for k in total:
+            total[k] += n[k]
+        require(n["mddq_encode_full_search"] == 0,
+                "the MDDQ encode took the full search")
+        return out, n
+
+    # 1. the data: the pipeline's --fast frames, sampled on the card
+    t0 = time.perf_counter()
+    data = sample_dataset_md(0, TRAIN_FRAMES + TEST_FRAMES, device=dev)
+    train_data, test_data = pipeline._split_data(data, TRAIN_FRAMES)
+    e_mev = float(data["e_scale"]) * 1e3
+    print(f"  {TRAIN_FRAMES} + {TEST_FRAMES} MD frames sampled on the card "
+          f"in {time.perf_counter() - t0:.1f} s, e_scale "
+          f"{float(data['e_scale']):.4f} eV")
+    cfg32 = so3.So3kratesConfig(**pipeline.BASE, **pipeline.METHODS["fp32"])
+    cfgq = so3.So3kratesConfig(**pipeline.BASE,
+                               **pipeline.METHODS["gaq_w4a8"])
+    require(cfgq.dir_bits == 12 and cfg32.n_rbf == 16
+            and cfg32.cutoff == 10.0, "not the pipeline's configuration")
+    n_steps = TRAIN_FRAMES // TRAIN_BATCH
+
+    # 2. fp32 at the paper's width: no kernel launches
+    t0 = time.perf_counter()
+    (p32, h32), n32 = counted(lambda: tr.train(
+        cfg32, train_data, tr.TrainConfig(
+            epochs=FP32_EPOCHS, warmup_epochs=0, batch_size=TRAIN_BATCH,
+            lr=5e-3), device=dev))
+    t32 = time.perf_counter() - t0
+    require(np.isfinite(h32["loss"]).all(), "fp32: non-finite loss")
+    require(h32["loss"][-1] < h32["loss"][0],
+            f"fp32: the loss did not fall ({h32['loss'][0]} -> "
+            f"{h32['loss'][-1]})")
+    only_k4(n32, 0, "fp32 training")
+
+    # 3. QAT: warm-up epochs launch nothing, a full step L x (1 + 2 x
+    # rotations) K4 band searches (one batched forward, two per rotation)
+    qcfg = tr.TrainConfig(epochs=QAT_EPOCHS, warmup_epochs=QAT_WARMUP,
+                          batch_size=TRAIN_BATCH, lr=1e-3, lee_weight=1.0,
+                          lee_rotations=2)
+    per_full = cfgq.n_layers * (1 + 2 * qcfg.lee_rotations)
+    t0 = time.perf_counter()
+    (pq, hq), nq = counted(lambda: tr.train(cfgq, train_data, qcfg,
+                                            init=p32, device=dev))
+    tq = time.perf_counter() - t0
+    require(np.isfinite(hq["loss"]).all(), "gaq_w4a8: non-finite loss")
+    only_k4(nq, (QAT_EPOCHS - QAT_WARMUP) * n_steps * per_full,
+            "QAT training")
+    warm_n = QAT_WARMUP * n_steps
+
+    def med(xs):
+        return statistics.median(xs[1:] if len(xs) > 1 else xs)
+    step_ms = {"fp32": med(h32["step_ms"]),
+               "QAT warm-up": med(hq["step_ms"][:warm_n]),
+               "QAT full": med(hq["step_ms"][warm_n:])}
+    print(f"  fp32: {FP32_EPOCHS} epochs x {n_steps} steps in {t32:.1f} s, "
+          f"loss {h32['loss'][0]:.4f} -> {h32['loss'][-1]:.4f}; QAT "
+          f"gaq_w4a8: {QAT_EPOCHS} epochs ({QAT_WARMUP} warm-up) in "
+          f"{tq:.1f} s, loss {hq['loss'][0]:.4f} -> {hq['loss'][-1]:.4f}")
+    print("  ms per training step (host clock, median, first step left "
+          "out): " + ", ".join(f"{k} {v:.2f}" for k, v in step_ms.items())
+          + f" [{ident}]")
+
+    # one step of each kind in its own window, and the profile of a full
+    # step; the same batch and rotations as the card-vs-CPU steps below
+    species = train_data["species"]
+    cb = make_codebook(cfgq.dir_bits, device=dev)
+    batch = [train_data[k][:TRAIN_BATCH] for k in ("coords", "energy",
+                                                   "forces")]
+    rots = random_rotations(1, qcfg.lee_rotations)
+    opt = tr.make_optimizer(qcfg, QAT_EPOCHS * n_steps)
+    loss_warm = tr.make_loss_fn(dataclasses.replace(
+        cfgq, freeze_vec_quant=True), species, cb, qcfg)
+    loss_full = tr.make_loss_fn(cfgq, species, cb, qcfg)
+    loss_32 = tr.make_loss_fn(cfg32, species, None, qcfg)
+
+    def step(loss_fn):
+        out = tr.train_step(loss_fn, opt, pq, opt.init(pq), *batch, rots)
+        float(out[2])
+        return out
+    _, n_warm = counted(lambda: step(loss_warm))
+    only_k4(n_warm, 0, "a QAT warm-up step")
+    with k4_inputs() as k4_calls:
+        _, n_full = counted(lambda: step(loss_full))
+    only_k4(n_full, per_full, "a full QAT step")
+    print(f"  launches per step: fp32 0, warm-up 0, full QAT K4 "
+          f"{n_full['mddq_encode_kernel']} (L={cfgq.n_layers} x (1 + 2 x "
+          f"{qcfg.lee_rotations} rotations)), nothing else")
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step(loss_full)
+        host.append((time.perf_counter() - t0) * 1e3)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(loss_full)
+        torch.cuda.synchronize(dev)
+    rows = _device_rows(torch, prof)
+    busy = sum(r[0] for r in rows)
+    if busy:
+        print(f"  profiled full QAT step: device busy {busy:.3f} ms, "
+              f"{sum(r[1] for r in rows)} device events; unprofiled "
+              f"{statistics.median(host):.2f} ms (median of 5) -> idle share "
+              f"{1 - busy / statistics.median(host):.3f} [{ident}]")
+        for t_ms, count, key in rows[:6]:
+            print(f"    {t_ms:9.4f} ms  x{count:<5d} {key[:80]}")
+    else:
+        print("  profiler: no device time recorded (idle share not "
+              "measured)")
+
+    # K4 at this path's shapes: the batch's vectors and one LEE force call
+    require(len(k4_calls) == per_full, f"{len(k4_calls)} K4 calls recorded")
+    v_batch, cb_k4 = k4_calls[0]
+    require(tuple(v_batch.shape) == (TRAIN_BATCH * 24 * cfgq.vec_feat, 3)
+            and cb_k4.shape[0] == 2 ** cfgq.dir_bits,
+            f"K4 took {tuple(v_batch.shape)} x {cb_k4.shape[0]}")
+    _, err_b = _mddq_exact(torch, v_batch, cb_k4, "training batch")
+    _, err_l = _mddq_exact(torch, k4_calls[cfgq.n_layers][0], cb_k4,
+                           "LEE force call")
+    k4 = lambda: mddq_encode_kernel(v_batch, cb_k4)      # noqa: E731
+    k4_ms = queued_device_ms(torch, k4)
+    k4_event = time_ms(torch, k4, reps=10)
+    k4_plain = time_ms(torch, lambda: mddq_encode_ref(v_batch, cb_k4),
+                       reps=2, rounds=3)
+    pairs, covered = band_work(torch, v_batch, cb_k4, k4()[0])
+    k4_bound, k4_by = bound(20 * v_batch.shape[0] + 12 * covered,
+                            5 * pairs, FP32_OPS_PER_S)
+    print(f"  K4 at the training shape N={v_batch.shape[0]} "
+          f"C={cb_k4.shape[0]}: device {k4_ms * 1e3:.3f} us (CUDA events "
+          f"behind a sleep kernel), event {k4_event * 1e3:.2f} us (back to "
+          f"back), plain {k4_plain:.3f} ms, bound {k4_bound * 1e3:.4f} us "
+          f"({k4_by}, {pairs} scored pairs) [{ident}]")
+
+    # the card against the CPU: one fp32 and one full QAT step (loss and
+    # every gradient leaf), same weights, batch and rotations
+    cpu = torch.device("cpu")
+    p_cpu = {k: v.cpu() for k, v in pq.items()}
+    batch_cpu = [t.cpu() for t in batch]
+    for name, cfg, fn in (("fp32", cfg32, loss_32),
+                          ("gaq_w4a8", cfgq, loss_full)):
+        fn_cpu = tr.make_loss_fn(
+            cfg, species.cpu(), make_codebook(cfg.dir_bits, device=cpu)
+            if cfg.quant != "none" else None, qcfg)
+        with qat_sites() as s_card:
+            card = tr.loss_and_grads(fn, pq, *batch, rots)
+        with qat_sites() as s_cpu:
+            host_ = tr.loss_and_grads(fn_cpu, p_cpu, *batch_cpu, rots)
+        rel, leaves = step_gap(torch, card, host_)
+        worst = max(leaves, key=leaves.get)
+        tol = 1e-5 if cfg.quant == "none" else 1e-4
+        print(f"  {name} step, card vs CPU: loss {rel:.3g}, worst gradient "
+              f"leaf {worst} {leaves[worst]:.3g} (of the leaf's largest "
+              f"|g|)")
+        if rel > tol or leaves[worst] > 1e-4:
+            moved = moved_qat_sites(s_card, s_cpu)
+            print(f"  {name}: A8 codes or gates and MDDQ codes that moved, "
+                  f"per site: {moved}")
+            require(cfg.quant != "none" and sum(moved) > 0,
+                    f"{name}: card and CPU differ by {rel}, {worst} "
+                    f"{leaves[worst]} with no moved code")
+            # the CPU's codes and gates pinned on the card: the rest of
+            # the gap is arithmetic, held to the tolerances
+            with qat_sites(pin=s_cpu):
+                pinned = tr.loss_and_grads(fn, pq, *batch, rots)
+            rel_p, leaves_p = step_gap(torch, pinned, host_)
+            worst_p = max(leaves_p, key=leaves_p.get)
+            print(f"  {name} on the card with the CPU's codes and gates "
+                  f"pinned: loss {rel_p:.3g}, worst gradient leaf "
+                  f"{worst_p} {leaves_p[worst_p]:.3g}")
+            require(rel_p <= tol and leaves_p[worst_p] <= 1e-4,
+                    f"{name}: with the CPU's codes pinned the card still "
+                    f"differs by {rel_p}, {worst_p} {leaves_p[worst_p]}")
+
+    # 4. evaluation: E/F MAE in meV and LEE (4 rotations x 4 frames)
+    ev = {}
+    for name, cfg, p in (("fp32", cfg32, p32), ("gaq_w4a8", cfgq, pq)):
+        ev[name], n_ev = counted(lambda: tr.evaluate(cfg, p, test_data,
+                                                     device=dev))
+        only_k4(n_ev, 0 if cfg.quant == "none" else cfg.n_layers
+                * -(-TEST_FRAMES // 32), f"evaluate {name}")
+        lee_v, n_lee = counted(lambda: pipeline.lee_eval(
+            cfg, p, test_data, n_rot=4, n_cfg=4, device=dev))
+        only_k4(n_lee, 0 if cfg.quant == "none" else 32 * cfg.n_layers,
+                f"lee_eval {name}")
+        ev[name]["lee"] = lee_v
+        print(f"  {name}: E MAE {ev[name]['e_mae'] * e_mev:.3f} meV, F MAE "
+              f"{ev[name]['f_mae'] * e_mev:.3f} meV/A, LEE {lee_v:.6f}")
+
+    # 5. NVE on the trained gaq_w4a8 model
+    t0 = time.perf_counter()
+    nve, n_nve = counted(lambda: pipeline.nve_eval(cfgq, pq, test_data,
+                                                   NVE_STEPS, device=dev))
+    only_k4(n_nve, cfgq.n_layers * (1 + NVE_STEPS + NVE_STEPS // 50),
+            "nve_eval")
+    require(np.isfinite(nve["energies"]).all(), "NVE: non-finite energy")
+    print(f"  NVE {NVE_STEPS} steps (gaq_w4a8, dt 0.5 fs): drift "
+          f"{nve['drift_ev_per_atom_ps']:.3e} eV/atom/ps, blew_up "
+          f"{nve['blew_up']}, {time.perf_counter() - t0:.1f} s")
+
+    # 6. the trained weights served: w4a8, sparse, MDDQ kernel, bucket 32
+    sp_np = species.cpu().numpy().astype(np.int32)
+    graphs = [Graph(sp_np, c) for c in test_data["coords"].cpu().numpy()]
+    eng = QuantizedEngine.from_config(cfgq, params=pq, serve=ServeConfig(
+        mode="w4a8", path="sparse", mddq_kernel=True, bucket_sizes=(32,),
+        max_batch=8, edge_capacity=1024), device=dev)
+    eng.reset_stats()
+    served, n_serve = counted(lambda: eng.infer_batch(graphs))
+    n_disp = eng.dispatch_stats["sparse"]
+    want = predict_launches({("w4a8", "sparse"): n_disp}, cfgq.n_layers)
+    got = {k: n_serve[k] for k in want}
+    require(n_disp == -(-len(graphs) // 8) and got == want,
+            f"serving: {n_disp} dispatches, launches {got}, expected {want}")
+    e_q, f_q = so3.energy_and_forces(pq, cfgq, species, test_data["coords"])
+    e_s = np.array([r.energy for r in served])
+    f_s = np.stack([r.forces for r in served])
+    require(np.isfinite(e_s).all() and np.isfinite(f_s).all(),
+            "serving: non-finite result")
+    gap_e = float(np.abs(e_s - e_q.cpu().numpy()).max()
+                  / np.abs(e_q.cpu().numpy()).max())
+    gap_f = float(np.abs(f_s - f_q.cpu().numpy()).max()
+                  / np.abs(f_q.cpu().numpy()).max())
+    print(f"  served (w4a8 sparse, {n_disp} dispatches, launches {got}) vs "
+          f"the QAT model: energy {gap_e:.4g}, forces {gap_f:.4g} of the "
+          "largest |value| (reported, not gated)")
+    held = check_kernel_calls(torch, lambda: eng.infer_batch(graphs[:8]),
+                              "phase 8 serve")
+
+    # the parameter file, bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "gaq_w4a8.npz")
+        pipeline.save_params(path, pq)
+        back = pipeline.load_params(path, dev)
+    require(set(back) == set(pq) and all(torch.equal(back[k], pq[k])
+                                         for k in pq),
+            "load_params(save_params(p)) changed the weights")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    took = time.perf_counter() - t_phase
+    print(f"  max_memory_allocated over the phase {peak:.1f} MiB; phase 8 "
+          f"took {took:.1f} s [{ident}]")
+    require(took <= TRAIN_PHASE_S, f"phase 8 took {took:.1f} s")
+    held["mddq_encode_kernel"] = (max(held.get("mddq_encode_kernel",
+                                               (0.0, []))[0], err_b, err_l),
+                                  held.get("mddq_encode_kernel", (0, []))[1]
+                                  + [f"N={v_batch.shape[0]} "
+                                     f"C={cb_k4.shape[0]} (training batch)"])
+    return {"launches": total, "held": held,
+            "k4_training": {"shape": f"N={v_batch.shape[0]} "
+                            f"C={cb_k4.shape[0]}", "device_ms": k4_ms,
+                            "ms": k4_event, "plain_ms": k4_plain,
+                            "bound_ms": k4_bound, "bound_by": k4_by}}
+
+
 def main() -> int:
     src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch").is_dir():
@@ -2661,9 +3101,16 @@ def main() -> int:
           f"checkpointed MD session, {SERVER_REQUESTS} requests at "
           f"{SERVER_RATE:.0f} req/s, {SESSION_STEPS} MD steps")
     cluster = run_cluster(torch, dev, cfg, single)
+    print("phase 8: training, paper width: fp32 then gaq_w4a8 QAT "
+          f"(12-bit codebook, warm-up, LEE), {TRAIN_FRAMES} + {TEST_FRAMES} "
+          "frames; evaluate, NVE and serve the trained weights")
+    training = run_training(torch, dev)
     for row in rows:
+        if row["name"] == "mddq_encode_kernel":
+            row["training_shape"] = training["k4_training"]
         for key, h in (("so3_server_shapes", held),
-                       ("cluster_shapes", cluster["held"])):
+                       ("cluster_shapes", cluster["held"]),
+                       ("training_shapes", training["held"])):
             if row["name"] in h:
                 err, shapes = h[row["name"]]
                 row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -2672,7 +3119,8 @@ def main() -> int:
                    "lm_decode": lm[row["name"]], "md": md[row["name"]],
                    "so3_server": server[row["name"]],
                    "cluster": cluster["cluster"].get(row["name"], 0),
-                   "md_session": cluster["md_session"].get(row["name"], 0)}
+                   "md_session": cluster["md_session"].get(row["name"], 0),
+                   "training": training["launches"].get(row["name"], 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     require("jax" not in sys.modules and "repro" not in sys.modules,

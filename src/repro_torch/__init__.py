@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the GAQ serving system (``repro``'s counterpart).
+"""PyTorch/CUDA port of the GAQ system, serving and training (``repro``'s
+counterpart).
 
 Module names follow ``repro`` so each counterpart is easy to find. The
 package imports ``torch`` and numpy only: nothing of JAX and nothing of

@@ -49,15 +49,16 @@ def _split(v: torch.Tensor):
 
 
 def fake_quant_from_codes(v: torch.Tensor, cfg: MDDQConfig,
-                          q_dir: torch.Tensor, m_q: torch.Tensor
-                          ) -> torch.Tensor:
+                          q_dir: torch.Tensor, m_q: torch.Tensor,
+                          nested: bool = False) -> torch.Tensor:
     """The log-domain fake-quant output for given codes: forward value
     ``m_q * q_dir`` (0 for zero vectors), gradient the straight-through
     magnitude plus the Geometric-STE (or identity) direction estimator.
-    q_dir: (..., 3) codewords; m_q: (..., 1) decoded magnitudes."""
+    q_dir: (..., 3) codewords; m_q: (..., 1) decoded magnitudes.
+    ``nested``: see ``core.ste``."""
     m, u = _split(v)
     ste = geometric_ste_direction if cfg.geometric_ste else identity_ste
-    u_hat = ste(u, q_dir)
+    u_hat = ste(u, q_dir, nested)
     m_hat = m + (m_q - m).detach()
     # zero vectors stay zero (direction undefined); <= because the safe
     # norm in _split floors m at exactly _EPS for v == 0
@@ -66,11 +67,13 @@ def fake_quant_from_codes(v: torch.Tensor, cfg: MDDQConfig,
 
 
 def mddq_fake_quant(v: torch.Tensor, cfg: MDDQConfig,
-                    codebook: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    codebook: Optional[torch.Tensor] = None,
+                    nested: bool = False) -> torch.Tensor:
     """Differentiable MDDQ. v: (..., 3) -> (..., 3).
 
     Gradients: straight-through on the magnitude; Geometric STE (tangent
     projection) on the direction unless ``cfg.geometric_ste`` is False.
+    ``nested``: see ``core.ste``.
     """
     if codebook is None:
         codebook = cfg.codebook(v.device)
@@ -81,9 +84,10 @@ def mddq_fake_quant(v: torch.Tensor, cfg: MDDQConfig,
                                       cfg.m_min, cfg.m_max)
         m_q = dequantize_log_magnitude(code, cfg.magnitude_bits,
                                        cfg.m_min, cfg.m_max)
-        return fake_quant_from_codes(v, cfg, q_dir, m_q)
+        return fake_quant_from_codes(v, cfg, q_dir, m_q, nested)
     ste = geometric_ste_direction if cfg.geometric_ste else identity_ste
-    out = fake_quant_ste(m, cfg.magnitude_bits) * ste(u, q_dir)
+    out = fake_quant_ste(m, cfg.magnitude_bits, nested=nested) \
+        * ste(u, q_dir, nested)
     return torch.where(m <= _EPS, torch.zeros_like(out), out)
 
 

@@ -5,22 +5,56 @@ real quantization to a signed grid, int4 nibble packing (low nibble
 first along the last axis) and the log-domain magnitude quantizer Q_m of
 MDDQ. ``torch.round`` rounds half to even, like ``jnp.round``, so codes
 agree with the JAX package bit for bit.
+
+Clips that carry gradient go through :func:`clip`, which splits the
+gradient at a bound the way ``jnp.clip`` does (half to each side);
+``torch.clamp`` passes all of it, so the abs-max entry of every
+fake-quantized tensor, which lands exactly on ``qmax``, would get twice
+the reference's gradient.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
-__all__ = ["qmax", "div_by_constant", "scale_from_amax", "abs_max_scale",
-           "quantize", "fake_quant_ste", "pack_int4", "unpack_int4",
+from repro_torch.core.ste import round_ste
+
+__all__ = ["QuantConfig", "qmax", "clip", "div_by_constant",
+           "scale_from_amax", "abs_max_scale", "quantize", "dequantize",
+           "fake_quant", "fake_quant_ste", "pack_int4", "unpack_int4",
            "log_magnitude_bounds", "quantize_log_magnitude",
            "dequantize_log_magnitude", "f32"]
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """Configuration of a symmetric linear quantizer."""
+
+    bits: int = 8
+    # axis along which a separate scale is computed; None = per-tensor
+    channel_axis: Optional[int] = None
+    # numerical floor for scales so zero tensors don't produce inf
+    eps: float = 1e-8
+
+    @property
+    def levels(self) -> int:
+        return 2 ** self.bits
 
 
 def qmax(bits: int) -> int:
     """Largest representable magnitude of a signed symmetric b-bit grid."""
     return 2 ** (bits - 1) - 1
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``: ``minimum(maximum(x, lo), hi)`` with
+    tensor bounds, so an entry exactly on a bound gets half the gradient,
+    as in JAX (``torch.clamp`` gives it all). The bounds are 0-d tensors
+    filled on x's device (no host-to-device copy, so no sync)."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
 
 
 def div_by_constant(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -58,16 +92,29 @@ def quantize(x: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:
     return torch.clamp(torch.round(x / scale), -m, m).to(torch.int8)
 
 
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(scale.dtype) * scale
+
+
+def fake_quant(x: torch.Tensor, scale: torch.Tensor,
+               bits: int) -> torch.Tensor:
+    """Quantize-dequantize without STE (gradients are zero a.e.)."""
+    m = qmax(bits)
+    return torch.clamp(torch.round(x / scale), -m, m) * scale
+
+
 def fake_quant_ste(x: torch.Tensor, bits: int = 8,
                    channel_axis: Optional[int] = None,
-                   scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Fake quantization with straight-through rounding; the clip is taken
-    before the rounding so saturated entries get zero gradient."""
+                   scale: Optional[torch.Tensor] = None,
+                   nested: bool = False) -> torch.Tensor:
+    """Fake quantization with straight-through rounding. The clip is taken
+    before the rounding, so saturated entries get zero gradient and an
+    entry exactly on ``qmax`` half of it (:func:`clip`, as ``jnp.clip``).
+    ``nested``: see ``core.ste``."""
     if scale is None:
         scale = abs_max_scale(x.detach(), bits, channel_axis)
     m = qmax(bits)
-    y = torch.clamp(x / scale, -m, m)
-    return (y + (torch.round(y) - y).detach()) * scale
+    return round_ste(clip(x / scale, -m, m), nested) * scale
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,8 @@
 Counterpart of ``repro/models/lm/layers.py``. ``qlinear``'s serve modes
 are a dequantize-next-to-compute product with no activation
 quantization, ``(x @ w_q.to(x.dtype)) * w_scale``: the JAX package leaves
-it to XLA, and the port to ``torch.matmul``. ``qat_w4a8`` belongs to the
-training slice and is not ported.
+it to XLA, and the port to ``torch.matmul``. ``qat_w4a8`` (the LM's QAT)
+belongs to the LM family's slice and is not ported.
 """
 from __future__ import annotations
 

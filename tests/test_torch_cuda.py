@@ -780,3 +780,83 @@ def test_session_chunk_failed_over_on_card_reemits_frames(cuda, tmp_path):
     assert faults.counts()["kill_replica"] == 1
     assert st["n_live"] == 1
     assert st["chunks"]["n_requeued"] + s.n_retries >= 1
+
+
+def _qat_codes(rec_into):
+    """Patch the QAT model's quantizers to record each site's A8 code and
+    clip gate (x / scale, rounded and compared with qmax) and MDDQ codes,
+    as CPU tensors; returns the restore function."""
+    from repro_torch.core.mddq import mddq_encode
+    from repro_torch.models import so3krates as so3
+    qact, qvec = so3._qact, so3._qvec
+
+    def rec_act(x, cfg, degrees=None, nested=False):
+        y = (x.detach() / so3._act_scale(x, cfg, degrees)).cpu()
+        rec_into.append(torch.stack([y.clamp(-127, 127).round(),
+                                     (y.abs() < 127).float()
+                                     + 0.5 * (y.abs() == 127).float()]))
+        return qact(x, cfg, degrees, nested)
+
+    def rec_vec(v, cfg, codebook, nested=False):
+        if not cfg.freeze_vec_quant:
+            with torch.no_grad():
+                rec_into.extend(c.cpu() for c in mddq_encode(
+                    v.detach(), cfg.mddq(), codebook))
+        return qvec(v, cfg, codebook, nested)
+    so3._qact, so3._qvec = rec_act, rec_vec
+
+    def restore():
+        so3._qact, so3._qvec = qact, qvec
+    return restore
+
+
+def test_qat_step_on_card_matches_cpu(cuda):
+    """One full gaq_w4a8 QAT step (force loss, LEE term over 2 rotations,
+    second-order backward) on the card against the CPU plain path, same
+    weights, batch and rotations: the loss to 1e-4 relative and every
+    gradient leaf to 1e-4 of its largest |g|, or, past that, an A8 code or
+    clip gate or an MDDQ code that moved between the devices. On the
+    card the step launches the MDDQ encode L x (1 + 2 x 2) times and no
+    other kernel."""
+    from repro_torch.core.codebook import make_codebook
+    from repro_torch.core.lee import random_rotations
+    from repro_torch.data.synthetic_md import sample_dataset
+    from repro_torch.models import so3krates as so3
+    from repro_torch.training import so3_trainer as tr
+    cfg = so3.So3kratesConfig(feat=16, vec_feat=4, n_layers=2, n_rbf=8,
+                              dir_bits=12, quant="gaq_w4a8")
+    tcfg = tr.TrainConfig(lee_weight=1.0, lee_rotations=2)
+    data = sample_dataset(0, 4, device="cpu")
+    params = so3.init_params(cfg, 0, "cpu")
+    rots = random_rotations(1, 2)
+    counters = [mddq_encode_kernel, w8a8_matmul_f32a, w4a8_matmul_f32a,
+                edge_softmax_fused, act_quant]
+
+    def step(dev, codes=None):
+        loss_fn = tr.make_loss_fn(cfg, data["species"].to(dev),
+                                  make_codebook(12, device=dev), tcfg)
+        batch = [data[k].to(dev) for k in ("coords", "energy", "forces")]
+        restore = _qat_codes(codes) if codes is not None else None
+        try:
+            return tr.loss_and_grads(
+                loss_fn, {k: v.to(dev) for k, v in params.items()}, *batch,
+                rots)
+        finally:
+            if restore:
+                restore()
+    for c in counters:
+        c.launches = 0
+    (lc, _, gc) = step(cuda)
+    assert mddq_encode_kernel.launches == 2 * (1 + 2 * 2)
+    assert all(c.launches == 0 for c in counters[1:])
+    (lh, _, gh) = step(torch.device("cpu"))
+    rel = abs(float(lc) - float(lh)) / abs(float(lh))
+    worst = max(float((gc[k].cpu() - gh[k]).abs().max()
+                      / gh[k].abs().max().clamp(min=1e-30)) for k in gh)
+    if rel > 1e-4 or worst > 1e-4:
+        codes = {"cuda": [], "cpu": []}
+        step(cuda, codes["cuda"])
+        step(torch.device("cpu"), codes["cpu"])
+        moved = sum(int((a != b).sum()) for a, b in zip(codes["cuda"],
+                                                         codes["cpu"]))
+        assert moved > 0, (rel, worst)

@@ -61,6 +61,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.server import load_engine
     from repro_torch.weights import (lm_params_from_numpy, params_from_numpy,
                                      qparams_from_numpy)
+    from repro_torch.data.synthetic_md import make_ff, sample_dataset_md
+    from repro_torch.training import pipeline, so3_trainer
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = So3kratesConfig(feat=8, vec_feat=2, n_layers=1, n_rbf=4,
                           dir_bits=4)
@@ -81,7 +83,14 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                   lambda: ClusterPool.from_tiers(cfg),
                   lambda: ClusterPool.from_artifact("no_such_artifact.npz"),
                   lambda: ClusterPool.from_quantized(cfg, {}, None),
-                  lambda: CheckpointManager(".").restore(0, like={})):
+                  lambda: CheckpointManager(".").restore(0, like={}),
+                  lambda: make_ff(),
+                  lambda: sample_dataset_md(0, 1, stride=1),
+                  lambda: so3_trainer.train(cfg, {}, so3_trainer.TrainConfig()),
+                  lambda: so3_trainer.evaluate(cfg, {}, {}),
+                  lambda: pipeline.load_params("no_such_params.npz"),
+                  lambda: pipeline.latency_eval(cfg, {}),
+                  lambda: pipeline.main(fast=True)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
     with pytest.raises(RuntimeError):
