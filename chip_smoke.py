@@ -154,6 +154,35 @@
    and full QAT step, a full step's device busy and idle share, K4's
    device time at the training shape, the peak device memory, the MAEs
    in meV, the LEEs, the NVE drift and the served-vs-QAT gap (reported).
+9. Runs the health plane (``repro_torch.obs``) over the served cluster.
+   (a) The serve CLI over phase 6's artifact and traffic (400 Poisson
+   requests at 100 req/s, numpy seed 0) with ``--tiers
+   w4a8:2,w8a8:1,fp32:1 --guardrails --md-session 200`` and the JAX
+   launcher's obs flags (``--metrics-out --trace-out --alerts-out
+   --export-interval 1 --health-interval 0.5``), four times: the plane
+   on, off, off, on. The first run with it on is counted and gated: its
+   launches per replica role equal the prediction (as phase 7's), with
+   K1'/K2', K3 and K4 launched and nothing else; the metrics file parses
+   line by line as Prometheus text, holds the series the stock SLOs and
+   detectors read that this configuration writes (the CLI arms no MD
+   drift limit and no LEE probe, and a clean replay has no pool event)
+   and counts the requests sent as submitted; the exporter and the
+   monitor did not miss an interval, raised nothing and evaluated without
+   error; the trace file holds one trace per request and per session
+   chunk and ``load_traces`` round-trips it; the Chrome timeline of the
+   traces, the flush records and the warmup records passes
+   ``validate_chrome_trace``; the alerts file holds exactly the alerts
+   the bus published (reported, not gated). (b) The chaos drill, the
+   card's twin of ``tests/test_obs_health.py``'s chaos replay at the
+   paper's width: a 4-replica pool under ``HealthMonitor``,
+   ``SLOEvaluator`` and ``AnomalyMonitor``; the clean arm fires nothing;
+   the chaos arm (pinned requests on hair-trigger w4a8 replicas, an
+   in-flight kill, a stall past a timeout of ten times phase 7's longest
+   flush, an MD session with ``drift_limit=1e-12``) fires the five
+   required alerts and nothing outside them and the detectors, the pool
+   sees them, and its exposition holds every series the catalogue reads.
+   Prints p50/p95/p99 and req/s per run, the threads' CPU seconds, the
+   files' bytes and the phase's seconds (within 120 s).
 
 Phase 2 also holds the act-quant kernel bit for bit (float32 and bf16),
 its KV entry (the decode's whole int8 KV write) byte for byte over a
@@ -172,6 +201,8 @@ import contextlib
 import dataclasses
 import faulthandler
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -234,6 +265,15 @@ REPLAY_TRACE = 1e-4
 TRAIN_FRAMES, TEST_FRAMES, TRAIN_BATCH = 96, 32, 32
 FP32_EPOCHS, QAT_EPOCHS, QAT_WARMUP, NVE_STEPS = 15, 6, 2, 400
 TRAIN_PHASE_S = 180.0
+# phase 9: the serve CLI with the JAX launcher's obs flags over phase 6's
+# artifact and traffic (the tiered fleet and an MD session beside it),
+# the health plane on and off in turns (the first run with it on is
+# counted and gated); then the chaos drill; the phase's limit in seconds
+HEALTH_TIERS = "w4a8:2,w8a8:1,fp32:1"
+HEALTH_REQUESTS, HEALTH_SESSION_STEPS = 400, 200
+HEALTH_EXPORT_S, HEALTH_EVAL_S = 1.0, 0.5
+HEALTH_ORDER = ("on", "off", "off", "on")
+HEALTH_PHASE_S = 120.0
 TRUNK_W8 = (64, 192)         # wq | wk | wm
 TRUNK_W4 = (64, 32)          # wa | wb
 OTHER_W8 = {"w_upd": (64, 64), "w_vnorm": (16, 64), "ro_w1": (80, 64),
@@ -2057,6 +2097,10 @@ def run_server(torch, dev, cfg, graphs):
                   f"{max(g.n_atoms for g in flush_graphs)} atoms:")
             profile_batch(torch, eng, flush_graphs)
 
+        # phase 9 serves this artifact again
+        kept = str(Path(tempfile.mkdtemp(prefix="chip_smoke_artifact_"))
+                   / "so3_w4a8.npz")
+        shutil.copyfile(path, kept)
         argv = ["--workload", "so3", "--server", "--artifact", path,
                 "--requests", "64", "--rate", "50", "--buckets", "16", "32",
                 "--max-batch", "8"]
@@ -2076,7 +2120,7 @@ def run_server(torch, dev, cfg, graphs):
                 and cli_launches["mddq_encode_kernel"] > 0,
                 f"the CLI's replay did not run the sparse path's kernels: "
                 f"{cli_launches}")
-    return launches, held, s
+    return launches, held, s, kept
 
 
 # --- phase 7: the cluster and a checkpointed MD session ----------------------
@@ -2084,15 +2128,18 @@ def run_server(torch, dev, cfg, graphs):
 def launches_per_forward(mode, path, n_layers):
     """Kernel launches of one forward and backward (a serving dispatch, a
     warmup run or an MD force call) with the MDDQ kernel on, read off
-    ``serving/forward.py`` and ``serving/qparams.py``: per layer 5
-    quantized products on the sparse path and 8 dense, plus the readout's
-    one, all f32-A W8 launches except the trunk's ``wa|wb`` W4 product in
-    w4a8 (1 per layer sparse, 2 dense); fp32 quantizes nothing; a K3 per
-    layer on the sparse path; a K4 per layer where vectors are quantized
-    (not fp32)."""
+    ``serving/forward.py`` and ``serving/qparams.py``: per layer on the
+    sparse path the trunk (``_trunk_matmul``: one product per weight kind,
+    so two in w4a8, a W8 and a W4 group, and one in w8a8), the update
+    MLP's two and ``w_vnorm``; on the dense path 8 per layer; plus the
+    readout's one. All are f32-A W8 launches except the W4 ones of w4a8
+    (``wa|wb``: 1 per layer sparse, 2 dense); fp32 quantizes nothing; a K3
+    per layer on the sparse path; a K4 per layer where vectors are
+    quantized (not fp32)."""
     L = n_layers
-    products = 0 if mode == "fp32" else (5 * L + 1 if path == "sparse"
-                                         else 8 * L + 1)
+    trunk = 2 if mode == "w4a8" else 1
+    products = 0 if mode == "fp32" else ((3 + trunk) * L + 1
+                                         if path == "sparse" else 8 * L + 1)
     w4 = L * (1 if path == "sparse" else 2) if mode == "w4a8" else 0
     return {"w8a8_matmul_f32a": products - w4, "w4a8_matmul_f32a": w4,
             "edge_softmax_fused": L if path == "sparse" else 0,
@@ -2135,6 +2182,62 @@ def dispatch_counts(modes=("w4a8", "w8a8", "fp32")):
     return {(m, p): REGISTRY.counter("engine_dispatch_total", mode=m,
                                      path=p).value
             for m in modes for p in ("dense", "sparse")}
+
+
+def role_predictions(runs, warm, force_calls, n_layers):
+    """{role: {kernel: launches}} for each replica role: a tier's flushes
+    (``runs``: dispatches per (mode, path)), its warmup runs (``warm``:
+    per (mode, path)) and its session chunks (``force_calls``: MD force
+    calls per mode, on the sparse path), each times
+    :func:`launches_per_forward`."""
+    predicted = {}
+    for kind, per in (("flush", runs), ("warmup", warm), ("chunk", {
+            (m, "sparse"): n for m, n in force_calls.items()})):
+        for (mode, path), n in per.items():
+            if n:
+                role = predicted.setdefault(f"{kind}:{mode}",
+                                            dict.fromkeys(SO3_KERNELS, 0))
+                for k, v in predict_launches({(mode, path): n},
+                                             n_layers).items():
+                    role[k] += v
+    return predicted
+
+
+def check_roles(predicted, by_role, launches, where):
+    """Every role's measured launches (``_launch.role_launches``) equal
+    its prediction, every launch of the window (``launches``, from
+    :func:`counted_run`) was made by a replica's flush, warmup or chunk,
+    and no kernel off the SO3 path ran. Returns the measured launches
+    split into {"cluster": flushes and warmups, "md_session": chunks}."""
+    others = ("mddq_encode_full_search", "act_quant", "w8a8_matmul",
+              "w4a8_matmul", "kv_append_int8", "decode_attention_int8kv")
+    for role in sorted(set(predicted) | set(by_role)):
+        got = {k: v for k, v in by_role.get(role, {}).items()
+               if k != "quantized_products"}
+        want = predicted.get(role, {})
+        print(f"  {role}: launches {got}, predicted {want}")
+        require(got == {k: v for k, v in want.items() if v},
+                f"{role}: launches {got}, predicted {want}")
+        require(by_role.get(role, {}).get("quantized_products", 0)
+                == want.get("w8a8_matmul_f32a", 0)
+                + want.get("w4a8_matmul_f32a", 0),
+                f"{role}: quantized products {by_role.get(role)}")
+    for name in SO3_KERNELS + ("quantized_products",):
+        require(sum(t.get(name, 0) for t in by_role.values())
+                == launches[name],
+                f"{name}: {launches[name]} launches, "
+                f"{sum(t.get(name, 0) for t in by_role.values())} of them "
+                "by a replica's flush, warmup or chunk")
+    for name in others:
+        require(launches[name] == 0, f"{name} ran in {where}")
+    measured = {"cluster": dict.fromkeys(SO3_KERNELS, 0),
+                "md_session": dict.fromkeys(SO3_KERNELS, 0)}
+    for role, t in by_role.items():
+        part = measured["md_session" if role.startswith("chunk:")
+                        else "cluster"]
+        for k in SO3_KERNELS:
+            part[k] += t.get(k, 0)
+    return measured
 
 
 def burst_rate(submit, graphs, timeout=120):
@@ -2298,6 +2401,7 @@ def run_cluster(torch, dev, cfg, single):
     TRACER.drain()
     d1 = dispatch_counts()
     stats = pool.stats()
+    flush_s = [f.service_s for f in pool.flush_records()]
     require("error" not in swap_report,
             f"the rolling swap failed: {swap_report.get('error')}")
 
@@ -2365,46 +2469,10 @@ def run_cluster(torch, dev, cfg, single):
         for w in reps[rid].engine.warmup_report:
             warm[(w["mode"], w["path"])] = warm.get((w["mode"], w["path"]),
                                                     0) + 1
-    predicted = {}
-    for kind, per in (("flush", runs), ("warmup", warm), ("chunk", {
-            (m, "sparse"): n for m, n in force_calls.items()})):
-        for (mode, path), n in per.items():
-            if n:
-                role = predicted.setdefault(f"{kind}:{mode}",
-                                            dict.fromkeys(SO3_KERNELS, 0))
-                for k, v in predict_launches({(mode, path): n}, L).items():
-                    role[k] += v
     print(f"  dispatches {runs}; swapped engines' warmup runs {warm}; MD "
           f"force calls {force_calls}; launches {launches}")
-    others = ("mddq_encode_full_search", "act_quant", "w8a8_matmul",
-              "w4a8_matmul", "kv_append_int8", "decode_attention_int8kv")
-    for role in sorted(set(predicted) | set(by_role)):
-        got = {k: v for k, v in by_role.get(role, {}).items()
-               if k != "quantized_products"}
-        want = predicted.get(role, {})
-        print(f"  {role}: launches {got}, predicted {want}")
-        require(got == {k: v for k, v in want.items() if v},
-                f"{role}: launches {got}, predicted {want}")
-        require(by_role.get(role, {}).get("quantized_products", 0)
-                == want.get("w8a8_matmul_f32a", 0)
-                + want.get("w4a8_matmul_f32a", 0),
-                f"{role}: quantized products {by_role.get(role)}")
-    # every launch of the window was made by a flush, a warmup or a chunk
-    for name in SO3_KERNELS + ("quantized_products",):
-        require(sum(t.get(name, 0) for t in by_role.values())
-                == launches[name],
-                f"{name}: {launches[name]} launches, "
-                f"{sum(t.get(name, 0) for t in by_role.values())} of them "
-                "by a replica's flush, warmup or chunk")
-    for name in others:
-        require(launches[name] == 0, f"{name} ran in the cluster")
-    measured = {"cluster": dict.fromkeys(SO3_KERNELS, 0),
-                "md_session": dict.fromkeys(SO3_KERNELS, 0)}
-    for role, t in by_role.items():
-        part = measured["md_session" if role.startswith("chunk:")
-                        else "cluster"]
-        for k in SO3_KERNELS:
-            part[k] += t.get(k, 0)
+    measured = check_roles(role_predictions(runs, warm, force_calls, L),
+                           by_role, launches, "the cluster")
     # session frames: once each, in index order, finite
     n_frames = SESSION_STEPS // MD_RECORD_EVERY
     first = {f.index: f for f in session.collected}
@@ -2635,7 +2703,7 @@ def run_cluster(torch, dev, cfg, single):
             f"the CLI's cluster replay did not run every kernel: "
             f"{cli_launches}")
     print(f"  phase 7 took {time.perf_counter() - t_phase:.1f} s [{ident}]")
-    return {**measured, "held": held}
+    return {**measured, "held": held, "flush_s": flush_s}
 
 
 # --- phase 8: training on the card -------------------------------------------
@@ -3028,6 +3096,446 @@ def run_training(torch, dev):
                             "bound_ms": k4_bound, "bound_by": k4_by}}
 
 
+# --- phase 9: the health plane over the served cluster ------------------------
+
+def health_series():
+    """Every series the stock SLO catalogue and anomaly detectors read."""
+    from repro_torch.obs import default_detectors, default_slos
+    names = set()
+    for slo in default_slos():
+        names |= {slo.metric, slo.bad, slo.total} - {""}
+    for det in default_detectors():
+        names |= {getattr(det, a) for a in ("gauge", "hist", "counter")
+                  if hasattr(det, a)}
+    return names
+
+
+_PROM_SAMPLE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)'
+    r'(\{[a-zA-Z_][a-zA-Z0-9_]*="[^"]*"(,[a-zA-Z_][a-zA-Z0-9_]*="[^"]*")*\})?'
+    r' (\S+)$')
+
+
+def parse_prometheus(text, what):
+    """{(name, sorted label pairs): value} of a text exposition. Every line
+    must be a ``# TYPE`` line of a known kind, another comment, or one
+    sample with a float value."""
+    samples = {}
+    for n, line in enumerate(text.splitlines(), 1):
+        if line.startswith("# TYPE "):
+            parts = line.split()
+            require(len(parts) == 4 and parts[3] in ("counter", "gauge",
+                                                     "summary"),
+                    f"{what}:{n}: bad TYPE line {line!r}")
+            continue
+        if line.startswith("# "):
+            continue
+        m = _PROM_SAMPLE.match(line)
+        require(m is not None, f"{what}:{n}: not a sample: {line!r}")
+        try:
+            value = float(m.group(4))
+        except ValueError:
+            raise SmokeFailure(f"{what}:{n}: value {m.group(4)!r}")
+        labels = tuple(sorted(re.findall(r'([a-zA-Z_][a-zA-Z0-9_]*)="([^"]*)"',
+                                         m.group(2) or "")))
+        samples[(m.group(1), labels)] = value
+    return samples
+
+
+def series_in(samples):
+    """The series names of parsed samples (a summary's ``_count`` and
+    ``_sum`` lines belong to its name)."""
+    names = set()
+    for name, _ in samples:
+        names.add(name)
+        for sfx in ("_count", "_sum"):
+            if name.endswith(sfx):
+                names.add(name[:-len(sfx)])
+    return names
+
+
+@contextlib.contextmanager
+def health_threads():
+    """Records, in each health-plane thread itself (the monitor's and the
+    exporter's loops), its CPU seconds and wall seconds when the loop ends
+    and the exception that ended it, if one did."""
+    from repro_torch.obs import HealthMonitor, PeriodicExporter
+    seen = []
+    plain = {cls: cls._run for cls in (HealthMonitor, PeriodicExporter)}
+
+    def wrap(cls, fn):
+        def run(self):
+            rec = {"thread": cls.__name__, "error": None}
+            seen.append(rec)
+            t0 = time.monotonic()
+            try:
+                fn(self)
+            except BaseException as exc:
+                rec["error"] = repr(exc)
+                raise
+            finally:
+                rec["cpu_s"] = time.thread_time()
+                rec["wall_s"] = time.monotonic() - t0
+        return run
+    for cls, fn in plain.items():
+        cls._run = wrap(cls, fn)
+    try:
+        yield seen
+    finally:
+        for cls, fn in plain.items():
+            cls._run = fn
+
+
+def check_health_files(args, files, threads):
+    """Phase 9 (a)'s gates on one CLI run with the health plane on: the
+    metrics file, the trace file, the timeline, the alerts file, the
+    health-plane threads (``threads``: :func:`health_threads`' records).
+    Returns the file sizes and the alerts fired."""
+    from repro_torch.obs import (Alert, load_traces, validate_chrome_trace,
+                                 write_chrome_trace)
+    for k, path in files.items():
+        require(Path(path).is_file() and (k == "a.jsonl"
+                                          or Path(path).stat().st_size > 0),
+                f"the CLI wrote no {k}")
+    # the metrics file: Prometheus text holding the catalogue's series
+    samples = parse_prometheus(Path(files["m.prom"]).read_text(), "m.prom")
+    written = series_in(samples)
+    # the CLI arms no MD drift limit and no LEE probe, and a clean replay
+    # has no pool event unless an alert lands: the chaos drill writes these
+    unarmed = {"md_energy_drift_ratio", "engine_lee_probe_level",
+               "pool_events_total"}
+    missing = health_series() - unarmed - written
+    require(not missing, f"m.prom lacks the series {sorted(missing)}")
+    submitted = sum(v for (name, lb), v in samples.items()
+                    if name == "serve_requests_total"
+                    and ("event", "submitted") in lb)
+    require(submitted == HEALTH_REQUESTS,
+            f"m.prom counts {submitted} submitted of {HEALTH_REQUESTS}")
+    errors = [k for k, v in samples.items()
+              if k[0] == "repro_obs_health_eval_errors_total" and v > 0]
+    require(not errors, f"health-plane evaluation errors {errors}")
+    # the loops swallow a failed export or step: each interval of the
+    # loop's life must show one (the last may race the stop), plus the
+    # final export and step on stop
+    life = {t["thread"]: t["wall_s"] for t in threads}
+    periods = {"PeriodicExporter": int(life["PeriodicExporter"]
+                                       / HEALTH_EXPORT_S),
+               "HealthMonitor": int(life["HealthMonitor"] / HEALTH_EVAL_S)}
+    require(args._exporter.n_exports >= max(3, periods["PeriodicExporter"]),
+            f"{args._exporter.n_exports} exports over "
+            f"{life['PeriodicExporter']:.3f} s: fewer than two periodic ones "
+            "before the final, or a failed export")
+    require(args._health.n_steps >= periods["HealthMonitor"],
+            f"the health monitor stepped {args._health.n_steps} times over "
+            f"{life['HealthMonitor']:.3f} s")
+    # the trace file: one trace per request and per session chunk
+    text = Path(files["t.jsonl"]).read_text()
+    docs = load_traces(files["t.jsonl"])
+    require(text.splitlines() == [json.dumps(d, separators=(",", ":"),
+                                             sort_keys=True) for d in docs],
+            "load_traces does not round-trip t.jsonl")
+    kinds = [d["kind"] for d in docs]
+    session = args._session
+    require(kinds.count("request") == HEALTH_REQUESTS
+            and kinds.count("chunk") == session.config.n_chunks
+            and session.n_retries == 0 and len(docs) == len(kinds)
+            == len({d["trace_id"] for d in docs})
+            and all(d["status"] == "ok" for d in docs),
+            f"t.jsonl: {kinds.count('request')} request and "
+            f"{kinds.count('chunk')} chunk traces for {HEALTH_REQUESTS} "
+            f"requests and {session.config.n_chunks} chunks")
+    pool = args._pool
+    flushes, warm = pool.flush_records(), pool.warmup_records()
+    flushed = {t for f in flushes for t in f.trace_ids}
+    require(flushed == {d["trace_id"] for d in docs
+                        if d["kind"] == "request"},
+            "the flush records and the request traces name other requests")
+    # the timeline: traces, flushes and warmups, validated
+    files["timeline.json"] = str(Path(files["m.prom"]).with_name(
+        Path(files["m.prom"]).name.replace("m.prom", "timeline.json")))
+    doc = write_chrome_trace(files["timeline.json"], docs, flushes, warm)
+    verdict = validate_chrome_trace(doc)
+    other = doc["otherData"]
+    require(verdict["ok"] and verdict["n_async_trees"] == len(docs)
+            and other["n_flushes"] == len(flushes) > 0
+            and other["n_flushes_skipped"] == 0
+            and other["n_warmup"] == len(warm) > 0,
+            f"the timeline: {verdict}, {other}")
+    # the alerts file: exactly the alerts the bus published
+    lines = Path(files["a.jsonl"]).read_text().splitlines()
+    alerts = [json.loads(ln) for ln in lines]
+    keys = set(Alert(name="", severity="", source="", message="").to_json())
+    require(len(alerts) == args._alert_bus.n_published
+            and all(set(a) == keys for a in alerts),
+            f"a.jsonl holds {len(alerts)} lines, the bus published "
+            f"{args._alert_bus.n_published}")
+    sizes = {k: Path(p).stat().st_size for k, p in files.items()}
+    print(f"  files (bytes): {sizes}; {len(samples)} samples of "
+          f"{len(written)} series; {len(docs)} traces; timeline "
+          f"{verdict['n_events']} events, {other['n_flushes']} flushes, "
+          f"{other['n_warmup']} warmup runs, max span-sum error "
+          f"{verdict['max_sum_err_us']} us")
+    return sizes, [(a["name"], a["severity"], a["value"]) for a in alerts]
+
+
+def chaos_arm(dev, cfg, qp, serve, chaos, stall_s, root):
+    """One arm of the chaos drill (the card's twin of the JAX package's
+    ``tests/test_obs_health.py::TestChaosReplay``): a 4-replica pool under
+    ``HealthMonitor`` driving ``SLOEvaluator`` and ``AnomalyMonitor``,
+    background traffic, and in the chaos arm pinned requests on
+    hair-trigger w4a8 replicas, an in-flight kill and a stall past
+    ``stall_s``; then an MD session (``drift_limit=1e-12`` in the chaos
+    arm) on a watchdog-free pool. Every replica runs the sampled LEE
+    probe every second call. Returns (alerts fired, the pool's alert
+    stats, the arm's registry exposition parsed)."""
+    from repro_torch.cluster import ClusterConfig, ClusterPool
+    from repro_torch.guardrails import ForceEnvelope, GuardrailConfig
+    from repro_torch.md import MDConfig
+    from repro_torch.obs import (REGISTRY, AlertBus, AnomalyMonitor,
+                                 HealthMonitor, SLOEvaluator,
+                                 default_detectors, default_slos,
+                                 prometheus_text)
+    from repro_torch.server import RequestHandle
+    from repro_torch.serving import Graph, QuantizedEngine
+    from repro_torch.sessions import SessionConfig, SessionManager
+    REGISTRY.reset()
+    probe = GuardrailConfig(lee_probe_every=2)
+    hair = dataclasses.replace(probe, envelope=ForceEnvelope(
+        limits=tuple((c, 1e-9) for c in SERVER_BUCKETS)))
+
+    def engine(tier, guard=probe):
+        return QuantizedEngine.from_quantized(
+            cfg, qp[tier], dataclasses.replace(serve, mode=tier),
+            device=dev, guardrails=guard)
+    tiers = ["w4a8", "w4a8", "w8a8", "w8a8"] if chaos else ["w8a8"] * 4
+    engines = [engine(t, hair if t == "w4a8" else probe) for t in tiers]
+    pool = ClusterPool(engines, ClusterConfig(
+        n_replicas=4, max_batch=8, deadline_ms=2.0, warmup=True,
+        max_escalations=1, max_queue=64, stall_timeout_s=stall_s,
+        watchdog_interval_s=0.1, probation_s=0.1))
+    bus = AlertBus(registry=REGISTRY)
+    fired = []
+    bus.subscribe(fired.append)
+    slos = default_slos(fast_window_s=0.6, slow_window_s=1.8,
+                        latency_p99_s=30.0, allow_partial=True)
+    monitor = HealthMonitor(
+        [SLOEvaluator(slos, registry=REGISTRY, bus=bus),
+         AnomalyMonitor(default_detectors(), registry=REGISTRY, bus=bus)],
+        interval_s=0.1).start()
+    pool.watch_alerts(bus)
+    rng = np.random.default_rng(0)
+
+    def graph(seed):
+        """The JAX test's 10-atom molecule of ``seed``."""
+        return Graph(*make_molecule(10, cfg.n_species, 0.1, seed))
+    try:
+        handles = []
+        for i in range(12):                   # paced background traffic
+            handles.append(pool.submit(graph(100 + i)))
+            time.sleep(0.04)
+        if chaos:
+            # fault 1: requests pinned to a hair-trigger w4a8 replica
+            # re-run a tier up
+            for k in range(3):
+                h = RequestHandle(graph(500 + k), time.monotonic(),
+                                  bucket_capacity=SERVER_BUCKETS[0])
+                require(pool._replicas[0].try_submit(h),
+                        "the hair-trigger replica refused")
+                handles.append(h)
+            # fault 2: an in-flight replica kill -> failover requeue
+            rep3 = pool._replicas[3]
+            pool.kill_replica(3, mode="in_flight")
+            h = RequestHandle(graph(600), time.monotonic(),
+                              bucket_capacity=SERVER_BUCKETS[0])
+            require(rep3.try_submit(h), "the killed replica refused")
+            handles.append(h)
+            # fault 3: an engine-lock stall past the watchdog's timeout
+            rep1 = pool._replicas[1]
+            rep1.inject_stall(stall_s + 1.5)
+            h = RequestHandle(graph(700), time.monotonic(),
+                              bucket_capacity=SERVER_BUCKETS[0])
+            require(rep1.try_submit(h), "the stalling replica refused")
+            handles.append(h)
+        for h in handles:
+            h.result(timeout=stall_s + 120)
+        pool_alerts = pool.stats()["alerts"]
+    finally:
+        pool.close()
+    # fault 4: an MD session, drifting (chaos) or not, on a pool with no
+    # watchdog (a chunk is one long unit of worker time)
+    md_pool = ClusterPool([engine("w8a8", None) for _ in range(2)],
+                          ClusterConfig(n_replicas=2, max_batch=8,
+                                        warmup=False, max_queue=64))
+    try:
+        md = MDConfig(mode="w8a8", dt_fs=0.25, record_every=10,
+                      mddq_kernel=True, drift_limit=1e-12 if chaos else None)
+        scfg = SessionConfig(n_steps=40, chunk_steps=20, record_every=10,
+                             checkpoint_every=1, md=md)
+        n = 10
+        side = (n / 0.1) ** (1.0 / 3.0)
+        mgr = SessionManager(md_pool, str(Path(root) / ("chaos" if chaos
+                                                       else "clean")))
+        s = mgr.start(rng.integers(0, cfg.n_species, n).astype(np.int32),
+                      rng.uniform(0, side, size=(n, 3)).astype(np.float32),
+                      np.full(n, 12.0, np.float32), seed=5, config=scfg)
+        try:
+            status = s.wait(120)
+        except Exception as exc:               # the session's fatal error
+            status = f"failed ({type(exc).__name__})"
+        require(status.startswith("failed") if chaos else status == "done",
+                f"the {'drifting' if chaos else 'clean'} session ended "
+                f"{status}")
+        mgr.close()
+        time.sleep(0.5)                        # let the windows catch up
+    finally:
+        monitor.stop(final_step=True)
+        md_pool.close()
+    samples = parse_prometheus(prometheus_text(registry=REGISTRY),
+                               "the drill's exposition")
+    errors = [k for k, v in samples.items()
+              if k[0] == "repro_obs_health_eval_errors_total" and v > 0]
+    require(not errors, f"health-plane evaluation errors {errors}")
+    return fired, pool_alerts, samples
+
+
+def run_health(torch, dev, cfg, artifact, flush_s):
+    """Phase 9: the serve CLI with the health plane (``--metrics-out
+    --trace-out --alerts-out``) over phase 6's artifact and traffic, with
+    a tiered fleet and an MD session, counted and gated, paired with the
+    same run with the plane off; then the chaos drill's clean and chaos
+    arms. ``flush_s`` are phase 7's flush times, which set the drill's
+    stall timeout. Returns {"launches": the counted run's launches}."""
+    import tempfile
+    from repro_torch.kernels import _launch
+    from repro_torch.launch import serve as cli
+    from repro_torch.models.so3krates import init_params
+    from repro_torch.obs import REGISTRY, default_detectors
+    from repro_torch.serving import ServeConfig
+    from repro_torch.serving.qparams import quantize_so3_params
+    ident = gpu_identity()
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_health_"))
+    base = ["--workload", "so3", "--server", "--artifact", artifact,
+            "--tiers", HEALTH_TIERS, "--guardrails", "--md-session",
+            str(HEALTH_SESSION_STEPS), "--requests", str(HEALTH_REQUESTS),
+            "--rate", str(SERVER_RATE), "--min-atoms", "9", "--max-atoms",
+            "24", "--density", "0.1", "--deadline-ms", "10", "--seed", "0"]
+    if dev.type != "cuda":
+        base += ["--device", str(dev)]
+    L = cfg.n_layers
+    runs, gated = [], None
+    for i, arm in enumerate(HEALTH_ORDER):
+        files = {k: str(tmp / f"run{i}_{k}") for k in ("m.prom", "t.jsonl",
+                                                       "a.jsonl")}
+        argv = base + (["--metrics-out", files["m.prom"], "--trace-out",
+                        files["t.jsonl"], "--alerts-out", files["a.jsonl"],
+                        "--export-interval", str(HEALTH_EXPORT_S),
+                        "--health-interval", str(HEALTH_EVAL_S)]
+                       if arm == "on" else [])
+        REGISTRY.reset()          # the files count this run alone
+        count = gated is None and arm == "on"
+        t0 = time.perf_counter()
+        try:
+            with health_threads() as threads:
+                if count:
+                    d0 = dispatch_counts()
+                    with counted_force_calls() as force_calls:
+                        args, launches = counted_run(lambda: cli.main(argv))
+                    by_role = _launch.role_launches()
+                    d1 = dispatch_counts()
+                else:
+                    args = cli.main(argv)
+        except SystemExit as exc:
+            raise SmokeFailure(f"the serve CLI exited with {exc.code}")
+        wall = time.perf_counter() - t0
+        res = args._result
+        s = res.summary()
+        require(s["n_requests"] == HEALTH_REQUESTS and res.n_shed == 0,
+                f"run {i}: {s['n_requests']} of {HEALTH_REQUESTS} resolved,"
+                f" {res.n_shed} shed")
+        require(all(t["error"] is None for t in threads)
+                and sorted(t["thread"] for t in threads)
+                == (["HealthMonitor", "PeriodicExporter"] if arm == "on"
+                    else []),
+                f"run {i}: health-plane threads {threads}")
+        cpu = {t["thread"]: t["cpu_s"] for t in threads}
+        runs.append((arm, s, wall, cpu))
+        print(f"  run {i}, health plane {arm}: p50 {s['p50_ms']:.3f} ms, "
+              f"p95 {s['p95_ms']:.3f}, p99 {s['p99_ms']:.3f}; "
+              f"{s['throughput_rps']:.2f} req/s; {wall:.3f} s; thread CPU "
+              f"s {cpu} [{ident}]")
+        if count:
+            gated = launches
+            flush_runs = {k: int(d1[k] - d0[k]) for k in d0}
+            warm = {}
+            for w in args._pool.warmup_records():
+                key = (w["mode"], w["path"])
+                warm[key] = warm.get(key, 0) + 1
+            print(f"  dispatches {flush_runs}; warmup runs {warm}; MD force "
+                  f"calls {force_calls}; launches {launches}")
+            check_roles(role_predictions(flush_runs, warm, force_calls, L),
+                        by_role, launches, "the health plane's run")
+            require(all(launches[k] > 0 for k in SO3_KERNELS),
+                    f"the health plane's run did not run every kernel: "
+                    f"{launches}")
+            _, alerts = check_health_files(args, files, threads)
+            print(f"  alerts on the replay (reported, not gated): "
+                  f"{alerts or 'none'} [{ident}]")
+    on = [r for r in runs if r[0] == "on"]
+    off = [r for r in runs if r[0] == "off"]
+    for key in ("p50_ms", "p95_ms", "p99_ms", "throughput_rps"):
+        print(f"  {key}: plane on {[round(r[1][key], 3) for r in on]}, off "
+              f"{[round(r[1][key], 3) for r in off]} [{ident}]")
+
+    # (b) the chaos drill at the paper's width
+    serve = ServeConfig(mode="w4a8", bucket_sizes=SERVER_BUCKETS,
+                        max_batch=8, edge_capacity=1024, path="sparse",
+                        mddq_kernel=True)
+    params = init_params(cfg, 0, dev)
+    qp = {t: quantize_so3_params(params, t) for t in ("w4a8", "w8a8")}
+    # a stall must outlast any flush by far: ten times the longest of
+    # phase 7's flushes on this card, and at least 1 s
+    stall_s = max(1.0, 10.0 * max(flush_s))
+    print(f"  chaos drill: stall timeout {stall_s:.3f} s (10x phase 7's "
+          f"longest flush, {max(flush_s) * 1e3:.3f} ms, of {len(flush_s)}; "
+          "at least 1 s)")
+    required = {"escalation_rate", "replica_failure", "replica_stall",
+                "md_energy_drift", "session_frame_loss"}
+    allowed = required | {d.name for d in default_detectors()}
+    for chaos in (False, True):
+        t0 = time.perf_counter()
+        fired, pool_alerts, samples = chaos_arm(
+            dev, cfg, qp, serve, chaos, stall_s, tmp / "sessions")
+        names = {a.name for a in fired}
+        print(f"  {'chaos' if chaos else 'clean'} arm, "
+              f"{time.perf_counter() - t0:.3f} s: alerts "
+              f"{[(a.name, a.severity, round(a.value, 6)) for a in fired]}"
+              f"; the pool saw {pool_alerts['n_seen']} [{ident}]")
+        if not chaos:
+            require(not fired, f"the clean arm fired {sorted(names)}")
+            continue
+        require(required <= names <= allowed,
+                f"the chaos arm fired {sorted(names)}: missing "
+                f"{sorted(required - names)}, unattributed "
+                f"{sorted(names - allowed)}")
+        by_name = {a.name: a for a in fired}
+        require(by_name["md_energy_drift"].value > 1.0
+                and by_name["replica_stall"].evidence["delta"] >= 1.0
+                and by_name["escalation_rate"].evidence["fast_burn"] >= 1.0,
+                "the chaos arm's alerts carry the wrong evidence")
+        require(pool_alerts["n_seen"] >= 1
+                and {a["name"] for a in pool_alerts["recent"]} & names,
+                f"the pool saw no alert: {pool_alerts}")
+        missing = health_series() - series_in(samples)
+        require(not missing,
+                f"the chaos arm's exposition lacks {sorted(missing)}")
+    took = time.perf_counter() - t_phase
+    print(f"  phase 9 took {took:.1f} s [{ident}]")
+    require(took <= HEALTH_PHASE_S,
+            f"phase 9 took {took:.1f} s, over {HEALTH_PHASE_S:.0f}")
+    return {"launches": gated}
+
+
 def main() -> int:
     src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch").is_dir():
@@ -3095,7 +3603,7 @@ def main() -> int:
           f"buckets {SERVER_BUCKETS}, {SERVER_REQUESTS} requests at "
           f"{SERVER_RATE:.0f} req/s")
     t0 = time.perf_counter()
-    server, held, single = run_server(torch, dev, cfg, graphs)
+    server, held, single, artifact = run_server(torch, dev, cfg, graphs)
     print(f"  phase 6 took {time.perf_counter() - t0:.1f} s")
     print("phase 7: the cluster (w4a8 x2, w8a8, fp32 on one card) and a "
           f"checkpointed MD session, {SERVER_REQUESTS} requests at "
@@ -3105,6 +3613,12 @@ def main() -> int:
           f"(12-bit codebook, warm-up, LEE), {TRAIN_FRAMES} + {TEST_FRAMES} "
           "frames; evaluate, NVE and serve the trained weights")
     training = run_training(torch, dev)
+    print("phase 9: the health plane over the served cluster: the serve CLI "
+          f"with --metrics-out --trace-out --alerts-out ({HEALTH_TIERS}, "
+          f"{HEALTH_REQUESTS} requests at {SERVER_RATE:.0f} req/s, "
+          f"{HEALTH_SESSION_STEPS} MD steps), on and off in turns; the "
+          "chaos drill")
+    health = run_health(torch, dev, cfg, artifact, cluster["flush_s"])
     for row in rows:
         if row["name"] == "mddq_encode_kernel":
             row["training_shape"] = training["k4_training"]
@@ -3120,7 +3634,8 @@ def main() -> int:
                    "so3_server": server[row["name"]],
                    "cluster": cluster["cluster"].get(row["name"], 0),
                    "md_session": cluster["md_session"].get(row["name"], 0),
-                   "training": training["launches"].get(row["name"], 0)}
+                   "training": training["launches"].get(row["name"], 0),
+                   "health_plane": health["launches"].get(row["name"], 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     require("jax" not in sys.modules and "repro" not in sys.modules,

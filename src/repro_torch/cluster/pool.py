@@ -915,8 +915,8 @@ class ClusterPool:
 
     def watch_alerts(self, bus) -> "ClusterPool":
         """Subscribe the pool to an alert bus (duck-typed: anything with
-        ``subscribe(fn) -> unsubscribe``, such as the JAX package's
-        ``repro.obs.slo.AlertBus``; the port has no ``obs.slo`` yet):
+        ``subscribe(fn) -> unsubscribe``, such as
+        :class:`repro_torch.obs.slo.AlertBus`):
         alerts are recorded (bounded history, ``stats()["alerts"]``)
         and counted under ``pool_events_total{event="alert"}`` so the
         fleet's own heartbeat carries the health plane's verdicts.
@@ -936,8 +936,8 @@ class ClusterPool:
 
     def flush_records(self) -> List:
         """Every replica's :class:`FlushRecord` list, merged — the
-        flush-slice source of a timeline export (the JAX package's
-        ``repro.obs.timeline``; not ported yet)."""
+        flush-slice source of a timeline export
+        (:func:`repro_torch.obs.timeline.chrome_trace`)."""
         return [f for r in self._replicas for f in r.records()]
 
     def warmup_records(self) -> List[Dict]:

@@ -41,15 +41,29 @@ on one card every replica is on ``cuda:0`` with its own stream):
 one tier up, ``--swap-artifact`` fires a rolling weight swap halfway
 through the replay, ``--md-session N`` streams a checkpointed N-step MD
 trajectory through the same replicas (``repro_torch.sessions``) and
-``--stall-timeout`` arms the pool's stall watchdog. The obs-export flags
-of the JAX launcher (``--metrics-out``, ``--trace-out``,
-``--alerts-out``, ``--export-interval``, ``--health-interval``) are not
-ported yet (ROADMAP.md): they exit with an error.
+``--stall-timeout`` arms the pool's stall watchdog.
+
+The obs flags arm the health plane on either workload (``repro_torch.obs``,
+as the JAX launcher's): ``--metrics-out`` rewrites the metrics registry
+as Prometheus text every ``--export-interval`` seconds,
+``--trace-out`` appends one JSON trace per request and session chunk,
+and ``--alerts-out`` evaluates the stock SLO catalogue and anomaly
+detectors every ``--health-interval`` seconds and appends one JSON alert
+per line; on the cluster path the pool subscribes to the alerts:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload so3 \\
+        --server --tiers w4a8:2,w8a8:1,fp32:1 --guardrails \\
+        --md-session 200 --metrics-out m.prom --trace-out t.jsonl \\
+        --alerts-out a.jsonl --export-interval 1 --health-interval 0.5
+
+``scripts/obs_top.py`` and ``scripts/trace_report.py --chrome-trace``
+read these files unchanged.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import threading
 import time
 from typing import Optional
@@ -71,13 +85,6 @@ from repro_torch.serving import QuantizedEngine, ServeConfig, random_graphs
 
 __all__ = ["ServedLM", "DecodeRun", "lm_config", "build_lm", "decode",
            "greedy_decode", "run_lm", "run_so3", "run_so3_server", "main"]
-
-# JAX launcher flags whose subsystem (the rest of obs: SLOs, anomaly
-# detection, exporters, timelines) the port does not have yet, with the
-# value that means "off"
-UNPORTED = {"metrics_out": None, "trace_out": None, "alerts_out": None,
-            "export_interval": None, "health_interval": None}
-
 
 @dataclasses.dataclass
 class ServedLM:
@@ -191,9 +198,10 @@ def _serve_overrides(args) -> dict:
     return {k: v for k, v in given.items() if v is not None}
 
 
-def run_so3(args) -> None:
+def run_so3(args):
     """The SO3 workload: build (or cold-start) the engine, then one shot
-    through ``infer_batch`` or, with ``--server``, the online replay."""
+    through ``infer_batch`` or, with ``--server``, the online replay
+    (returns its ``TrafficResult``)."""
     if args.artifact:
         # the mode is baked into the packed weights: it comes from the
         # artifact unless asked for, and a mismatch is an error
@@ -232,8 +240,7 @@ def run_so3(args) -> None:
     print(f"weights: fp32 {mem['fp32_bytes'] / 1e3:.1f} KB -> served "
           f"{mem['served_bytes'] / 1e3:.1f} KB ({mem['compression_x']}x)")
     if args.server:
-        run_so3_server(engine, args)
-        return
+        return run_so3_server(engine, args)
 
     graphs = random_graphs(args.graphs, args.min_atoms, args.max_atoms,
                            engine.model_cfg.n_species, seed=args.seed,
@@ -320,6 +327,13 @@ def _run_cluster(engine: QuantizedEngine, args, traffic, max_batch: int):
             fp32_nbytes=engine.memory_report()["fp32_bytes"],
             artifact_version=engine.artifact_version, guardrails=guardrails,
             device=device)
+    if getattr(args, "_alert_bus", None) is not None:
+        # fleet surfacing: alerts land in pool.stats()["alerts"] and bump
+        # pool_events_total{event="alert"}
+        pool.watch_alerts(args._alert_bus)
+    # the caller reads the closed pool's flush and warmup records (the
+    # timeline's flush and warmup slices)
+    args._pool = pool
     swap_report = {}
     swap_thread = session = session_mgr = None
     with pool:
@@ -330,6 +344,7 @@ def _run_cluster(engine: QuantizedEngine, args, traffic, max_batch: int):
         pool.reset_stats()
         if args.md_session:
             session, session_mgr = _start_md_session(pool, engine, args)
+            args._session = session
         if args.swap_artifact:
             # fire the rolling swap halfway through the replay; a failure
             # surfaces after the replay, not in the timer thread
@@ -513,12 +528,27 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--stall-timeout", type=float,
                     help="pool watchdog: quarantine a replica busy on one "
                          "unit of work longer than this (seconds)")
-    # the JAX launcher's obs-export flags: not ported yet
-    ap.add_argument("--metrics-out")
-    ap.add_argument("--trace-out")
-    ap.add_argument("--alerts-out")
-    ap.add_argument("--export-interval", type=float)
-    ap.add_argument("--health-interval", type=float)
+    ap.add_argument("--metrics-out", metavar="PATH",
+                    help="export the metrics registry as Prometheus text "
+                         "to this file, rewritten atomically every "
+                         "--export-interval seconds")
+    ap.add_argument("--trace-out", metavar="PATH",
+                    help="trace every request and session chunk and append "
+                         "one JSON trace per line to this file (render "
+                         "with scripts/trace_report.py)")
+    ap.add_argument("--export-interval", type=float, default=5.0,
+                    metavar="S",
+                    help="metrics export period in seconds (--metrics-out)")
+    ap.add_argument("--alerts-out", metavar="PATH",
+                    help="arm the health plane: evaluate the stock SLO "
+                         "catalogue (burn-rate windows) and the anomaly "
+                         "detectors against the live registry and append "
+                         "one JSON alert per line to this file (watch with "
+                         "scripts/obs_top.py)")
+    ap.add_argument("--health-interval", type=float, default=1.0,
+                    metavar="S",
+                    help="health-plane evaluation period in seconds "
+                         "(--alerts-out)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu, which runs every kernel's "
@@ -526,20 +556,90 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> None:
+def _setup_obs(args):
+    """``--metrics-out`` / ``--trace-out`` / ``--alerts-out``: arm the
+    metrics plane, the request tracer and the health plane (SLO burn-rate
+    evaluation and anomaly detectors), as the JAX launcher does. Returns a
+    cleanup callable that stops the health monitor (one final step),
+    writes the final export and closes the sinks. Every health-plane
+    thread is stdlib only: none touches the card."""
+    if not (args.metrics_out or args.trace_out or args.alerts_out):
+        return lambda: None
+    from repro_torch.obs import (REGISTRY, TRACER, AlertBus, AnomalyMonitor,
+                                 HealthMonitor, JsonlTraceSink,
+                                 PeriodicExporter, SLOEvaluator,
+                                 configure_tracing, default_detectors,
+                                 default_slos)
+    sink = exporter = monitor = alerts_file = None
+    if args.trace_out:
+        sink = JsonlTraceSink(args.trace_out)
+        configure_tracing(enabled=True, sink=sink)
+        print(f"tracing: per-request spans -> {args.trace_out} "
+              "(render with scripts/trace_report.py)")
+    if args.metrics_out:
+        exporter = PeriodicExporter(
+            args.metrics_out, interval_s=args.export_interval,
+            tracer=TRACER if sink is not None else None,
+            trace_sink=None).start()
+        print(f"metrics: Prometheus text exposition -> "
+              f"{args.metrics_out} every {args.export_interval:.0f}s")
+    if args.alerts_out:
+        REGISTRY.set_enabled(True)     # the evaluators read the registry
+        bus = AlertBus(registry=REGISTRY)
+        alerts_file = open(args.alerts_out, "a", encoding="utf-8")
+
+        def on_alert(alert):
+            alerts_file.write(json.dumps(alert.to_json()) + "\n")
+            alerts_file.flush()
+            print(f"ALERT[{alert.severity}] {alert.name}: "
+                  f"{alert.message}")
+        bus.subscribe(on_alert)
+        evaluator = SLOEvaluator(default_slos(), registry=REGISTRY,
+                                 bus=bus)
+        anomaly = AnomalyMonitor(default_detectors(), registry=REGISTRY,
+                                 bus=bus)
+        monitor = HealthMonitor([evaluator, anomaly],
+                                interval_s=args.health_interval).start()
+        args._alert_bus = bus      # cluster path: pool.watch_alerts
+        args._health = monitor
+        print(f"health plane: {len(evaluator.slos)} SLOs + "
+              f"{len(anomaly.detectors)} anomaly detectors every "
+              f"{args.health_interval:.1f}s, alerts -> {args.alerts_out}")
+    args._exporter = exporter
+
+    def cleanup():
+        if monitor is not None:
+            monitor.stop()         # one final evaluation step
+        if exporter is not None:
+            exporter.stop()        # joins + writes one final export
+        if alerts_file is not None:
+            alerts_file.close()
+        if sink is not None:
+            configure_tracing(enabled=False)
+            sink.close()
+            print(f"tracing: {sink.n_written} trace(s) written to "
+                  f"{args.trace_out}")
+    return cleanup
+
+
+def main(argv=None) -> argparse.Namespace:
+    """Run the launcher. Returns the parsed flags with what the run left:
+    ``_result`` (the ``--server`` replay's ``TrafficResult``, or the LM's
+    ``DecodeRun``), on the cluster path ``_pool`` (the closed pool: its
+    flush and warmup records) and ``_session`` (``--md-session``), and
+    with the obs flags ``_exporter``, ``_health`` and ``_alert_bus`` (the
+    stopped exporter and health monitor, the alert bus)."""
     ap = parser()
     args = ap.parse_args(argv)
-    for name, off in UNPORTED.items():
-        if getattr(args, name) != off:
-            ap.error(f"--{name.replace('_', '-')} is not ported yet: the "
-                     "port has no SLO, anomaly, export or timeline layer "
-                     "(the obs slice, see ROADMAP.md)")
-    if args.workload == "so3":
-        run_so3(args)
-        return
-    if not args.arch:
+    if args.workload == "lm" and not args.arch:
         ap.error("--workload lm requires --arch")
-    run_lm(args)
+    cleanup_obs = _setup_obs(args)
+    try:
+        args._result = (run_so3(args) if args.workload == "so3"
+                        else run_lm(args))
+    finally:
+        cleanup_obs()
+    return args
 
 
 if __name__ == "__main__":

@@ -12,10 +12,11 @@ dashboard reads either. Three instrument kinds:
 
 All instruments are thread-safe. ``REGISTRY.set_enabled(False)`` turns
 every write into a no-op; reads still work. ``snapshot()`` returns one
-JSON-able labelled document. The port's ``serving.QuantizedEngine``,
-``server.MicroBatchScheduler`` and ``md.MDEngine`` write it under the
-JAX package's names; the exporters and health plane of the JAX package's
-``obs/`` are not ported.
+JSON-able labelled document. The port's engine, scheduler, cluster, MD
+engine and sessions write it under the JAX package's names;
+:func:`repro_torch.obs.export.prometheus_text` renders it and the health
+plane (:mod:`repro_torch.obs.slo`, :mod:`repro_torch.obs.anomaly`)
+judges it.
 """
 from __future__ import annotations
 
@@ -171,8 +172,8 @@ class Histogram(_Instrument):
             base = {"count": self._count, "sum": self._sum,
                     "min": self._min, "max": self._max,
                     # JSON-able bucket dict ("u" = underflow) so the
-                    # health plane (the JAX package's obs/slo.py) can compute windowed
-                    # quantiles from snapshot deltas
+                    # health plane (repro_torch.obs.slo) can compute
+                    # windowed quantiles from snapshot deltas
                     "buckets": {("u" if k is None else str(k)): n
                                 for k, n in self._buckets.items()}}
         base["p50"] = self.percentile(0.50)

@@ -3,8 +3,8 @@
 package, so a trace from either package reads the same).
 
 A :class:`RequestTrace` is minted when a :class:`RequestHandle` is
-created (``MicroBatchScheduler.submit``; in the JAX package also the
-cluster's ``submit`` and ``submit_chunk``) and rides the handle through queueing, flushes,
+created (``MicroBatchScheduler.submit`` / ``ClusterPool.submit`` /
+``submit_chunk``) and rides the handle through queueing, flushes,
 escalation re-runs, and failover requeues until ``_resolve`` finishes
 it. The span model is a *tiling* state machine:
 
@@ -188,8 +188,8 @@ class Tracer:
     Disabled by default — ``start_request`` returns ``None`` so every
     instrumentation site degrades to one attribute check. When enabled,
     finished traces land in a bounded ring buffer (``drain()``) and,
-    if configured, a sink's ``write(dict)`` (any object with that
-    method; the JAX package's exporters are not ported).
+    if configured, a sink's ``write(dict)`` (e.g.
+    :class:`repro_torch.obs.export.JsonlTraceSink`).
 
     Sink export is **asynchronous**: ``_complete`` (called from the
     serving worker's ``_resolve``) only appends the finished trace to a

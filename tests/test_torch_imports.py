@@ -49,6 +49,36 @@ def test_no_source_file_imports_jax_or_repro():
     assert offenders == []
 
 
+def test_obs_imports_no_torch():
+    """The health plane (metrics, traces, exporters, SLOs, anomaly
+    detectors, timeline) is stdlib only: its monitor and exporter threads
+    run beside the replica workers and never touch the card. Every import
+    of ``repro_torch/obs`` is a standard-library module or another obs
+    module, so none reaches torch, JAX or the JAX package."""
+    obs = PKG / "obs"
+    names = {p.stem for p in obs.glob("*.py")}
+    assert {"metrics", "trace", "export", "slo", "anomaly",
+            "timeline"} <= names
+    offenders = []
+    for path in obs.glob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            for mod in mods:
+                top = mod.split(".")[0]
+                if top in sys.stdlib_module_names or top == "__future__":
+                    continue
+                if mod == "repro_torch.obs" or mod.startswith(
+                        "repro_torch.obs."):
+                    continue
+                offenders.append(f"{path.name}: {mod}")
+    assert offenders == []
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.models.so3krates import So3kratesConfig, init_params
     from repro_torch.serving import QuantizedEngine

@@ -357,7 +357,7 @@ def test_kv_write_leaves_the_cache_as_the_stacked_write(monkeypatch, arch,
     assert kv_append_int8.launches == 0
 
 
-def test_serve_cli_runs_on_the_cpu(capsys, monkeypatch):
+def test_serve_cli_runs_on_the_cpu(capsys, monkeypatch, tmp_path):
     serve.main(["--workload", "lm", "--arch", "qwen2-0.5b", "--smoke",
                 "--quant", "serve_w8a8", "--kv-quant", "--tokens", "4",
                 "--batch", "2", "--cache-len", "8", "--device", "cpu"])
@@ -374,10 +374,15 @@ def test_serve_cli_runs_on_the_cpu(capsys, monkeypatch):
     b = serve.greedy_decode(lm, 2, 8, 5)
     assert a.tokens.shape == (2, 5) and torch.equal(a.tokens, b.tokens)
     assert a.cache_bytes == 2 * 2 * 2 * 8 * (8 + 4)   # L, k|v, B, S, hd+4
-    # the CLI refuses what the port lacks (the obs exporters), and its SO3
-    # workload keeps the device rule: no card and no --device cpu raises
-    with pytest.raises(SystemExit):
-        serve.main(["--workload", "so3", "--metrics-out", "m.prom"])
+    # the obs flags run on the LM workload too: --metrics-out writes the
+    # exposition (atomically, stamped); and the SO3 workload keeps the
+    # device rule: no card and no --device cpu raises
+    prom = tmp_path / "m.prom"
+    serve.main(["--workload", "lm", "--arch", "qwen2-0.5b", "--smoke",
+                "--tokens", "2", "--batch", "1", "--cache-len", "4",
+                "--device", "cpu", "--metrics-out", str(prom)])
+    assert prom.read_text().startswith("# exported_at ")
+    assert not list(tmp_path.glob("*.tmp.*"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is unavailable"):
         serve.main(["--workload", "so3"])

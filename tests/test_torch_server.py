@@ -22,10 +22,12 @@ package's ``repro.server``, on the CPU.
 import dataclasses
 import json
 import os
+import subprocess
 import sys
 import threading
 import time
 import zipfile
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -51,6 +53,7 @@ from repro.serving import ServeConfig as JServe
 from repro_torch.guardrails import GuardrailConfig, GuardrailViolation
 from repro_torch.launch import serve as cli
 from repro_torch.models import so3krates as tso3
+from repro_torch.obs import REGISTRY
 from repro_torch.server import (ARTIFACT_VERSION, ArtifactError, BatchQueue,
                                 FlushRecord, MicroBatchScheduler, RateStage,
                                 RequestHandle, SchedulerClosed,
@@ -764,6 +767,7 @@ SMALL = ["--workload", "so3", "--device", "cpu", "--feat", "16",
          "--vec-feat", "4", "--layers", "1", "--dir-bits", "4",
          "--buckets", "16", "32", "--max-batch", "8", "--min-atoms", "4",
          "--max-atoms", "24", "--density", "0.1"]
+REPO = Path(__file__).resolve().parents[1]
 
 
 class TestCLI:
@@ -817,9 +821,87 @@ class TestCLI:
     @pytest.mark.parametrize("flag", [["--metrics-out", "m.prom"],
                                       ["--alerts-out", "a.jsonl"],
                                       ["--trace-out", "t.jsonl"]])
-    def test_unported_flags_exit_naming_roadmap(self, capsys, flag):
-        with pytest.raises(SystemExit) as ei:
-            cli.main(SMALL + ["--server"] + flag)
-        assert ei.value.code == 2
-        err = capsys.readouterr().err
-        assert "not ported" in err and "ROADMAP.md" in err
+    def test_unported_flags_exit_naming_roadmap(self, capsys, tmp_path,
+                                                monkeypatch, flag):
+        """The JAX launcher's obs flags, once refused, now write their
+        files: the metrics exposition counts the replay's requests, the
+        trace file holds one trace per request, and the health plane runs
+        beside a cluster replay with the pool subscribed to its alerts."""
+        out = str(tmp_path / flag[1])
+        # the process registry outlives each run: count this run's writes
+        submitted = REGISTRY.counter("serve_requests_total",
+                                     surface="scheduler", event="submitted")
+        before = int(submitted.value)
+        cluster = ["--replicas", "2"] if flag[0] == "--alerts-out" else []
+        from repro_torch.cluster import ClusterPool
+        watched = []
+        plain = ClusterPool.watch_alerts
+
+        def watch(pool, bus):
+            watched.append(bus)
+            return plain(pool, bus)
+        monkeypatch.setattr(ClusterPool, "watch_alerts", watch)
+        args = cli.main(SMALL + ["--server", "--requests", "12", "--rate",
+                                 "200", "--deadline-ms", "5",
+                                 "--export-interval", "0.05",
+                                 "--health-interval", "0.05", flag[0], out]
+                        + cluster)
+        text = Path(out).read_text()
+        if flag[0] == "--metrics-out":
+            assert text.startswith("# exported_at ")
+            assert 'serve_requests_total{event="submitted",' \
+                f'surface="scheduler"}} {before + 12}' in text.splitlines()
+            assert args._exporter.n_exports >= 1
+        elif flag[0] == "--trace-out":
+            docs = [json.loads(ln) for ln in text.splitlines()]
+            assert len(docs) == 12 and all(d["kind"] == "request"
+                                           and d["status"] == "ok"
+                                           for d in docs)
+        else:
+            # every line an alert; the pool subscribed to the bus (it hears
+            # the alerts published while it serves, none before it is
+            # built: the process registry may page at the first step)
+            for ln in text.splitlines():
+                assert set(json.loads(ln)) >= {"name", "severity", "source"}
+            assert args._health.n_steps >= 1
+            assert watched == [args._alert_bus]
+            assert args._pool.stats()["alerts"]["n_seen"] \
+                <= len(text.splitlines()) == args._alert_bus.n_published
+        assert "health plane:" in capsys.readouterr().out \
+            or flag[0] != "--alerts-out"
+
+    def test_obs_flag_defaults_are_the_jax_launchers(self):
+        args = cli.parser().parse_args(["--workload", "so3"])
+        assert (args.metrics_out, args.trace_out, args.alerts_out,
+                args.export_interval, args.health_interval) \
+            == (None, None, None, 5.0, 1.0)
+
+    def test_jax_scripts_read_the_clis_files(self, tmp_path):
+        """``scripts/obs_top.py`` and ``scripts/trace_report.py
+        --chrome-trace`` of the JAX package read the port's CLI output
+        unchanged (a tiered cluster with an MD session: request and chunk
+        traces)."""
+        paths = {k: str(tmp_path / k) for k in ("m.prom", "t.jsonl",
+                                                  "a.jsonl", "c.json")}
+        cli.main(SMALL + ["--server", "--requests", "12", "--rate", "200",
+                          "--deadline-ms", "5", "--mode", "w4a8", "--tiers",
+                          "w4a8:1,w8a8:1", "--guardrails", "--md-session",
+                          "20", "--metrics-out", paths["m.prom"],
+                          "--trace-out", paths["t.jsonl"], "--alerts-out",
+                          paths["a.jsonl"], "--export-interval", "0.05",
+                          "--health-interval", "0.05"])
+        env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+        top = subprocess.run(
+            [sys.executable, str(REPO / "scripts" / "obs_top.py"),
+             paths["m.prom"], "--once"],
+            capture_output=True, text=True, timeout=60, env=env)
+        assert top.returncode == 0, top.stderr
+        assert "requests:" in top.stdout and "SLOs:" in top.stdout
+        report = subprocess.run(
+            [sys.executable, str(REPO / "scripts" / "trace_report.py"),
+             paths["t.jsonl"], "--chrome-trace", paths["c.json"]],
+            capture_output=True, text=True, timeout=120, env=env)
+        assert report.returncode == 0, report.stderr
+        assert "13 trace(s)" in report.stdout      # 12 requests, 1 chunk
+        doc = json.loads(Path(paths["c.json"]).read_text())
+        assert doc["otherData"]["n_traces"] == 13
