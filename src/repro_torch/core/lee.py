@@ -69,12 +69,13 @@ def lee_regularizer(force_fn: Callable[[torch.Tensor], torch.Tensor],
                     rotations=None) -> torch.Tensor:
     """E_R[LEE] over ``n_rotations`` rotations drawn from ``seed`` (a seed
     or a numpy Generator), or over ``rotations`` (k, 3, 3), an array or
-    a tensor, as given (e.g. the JAX package's); differentiable. Each rotation runs the force model
-    twice, on the rotated and on the given coordinates."""
+    a tensor, as given (e.g. the JAX package's), taken in ``coords``'
+    dtype; differentiable. Each rotation runs the force model twice, on
+    the rotated and on the given coordinates."""
     if rotations is None:
         rotations = random_rotations(seed, n_rotations)
     if not isinstance(rotations, torch.Tensor):
         rotations = np.array(rotations, np.float32)
-    rots = torch.as_tensor(rotations, dtype=torch.float32,
+    rots = torch.as_tensor(rotations, dtype=coords.dtype,
                            device=coords.device)
     return torch.stack([lee(force_fn, coords, r) for r in rots]).mean()

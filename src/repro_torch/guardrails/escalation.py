@@ -9,9 +9,9 @@ the caller finally receives carries the full audit trail as
 
 "One tier up" means the next tier *present in the fleet* above the
 flagging replica's — a w4a8 -> fp32 pool escalates straight to fp32.
-The port has no cluster yet, so nothing escalates and
-``MoleculeResult.escalations`` stays empty; the record is here for the
-cluster slice.
+The port's pool (``cluster/pool.py``) appends these records and its
+replicas stamp them into the results (``cluster/replica.py``), as the
+reference does.
 """
 from __future__ import annotations
 

@@ -8,13 +8,18 @@ LM decode (``--workload lm``):
     PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
         --arch qwen2-0.5b --smoke --quant serve_w8a8 --kv-quant \\
         --tokens 8 --batch 2 --cache-len 64 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
+        --arch musicgen-large --smoke --quant serve_w8a8 --kv-quant \\
+        --tokens 8 --batch 2 --cache-len 64 --device cpu  # audio frames
 
 It builds the model from random weights (numpy seed), quantizes them,
 allocates the KV cache and runs a greedy decode loop from token 0 at
 position 0, then prints the weight bytes (float32 -> served), the
 KV-cache bytes and the decode rate, as the JAX launcher does. The
 ``--smoke`` configs run in float32, the full ones in ``cfg.dtype``
-(bf16).
+(bf16). ``--arch`` takes every id of ``configs.ARCH_IDS``; the
+non-token frontends (``musicgen-large``'s audio frames,
+``chameleon-34b``'s image patches) decode from zero embeddings.
 
 SO(3) force-field inference through ``serving.QuantizedEngine``
 (``--workload so3``): one shot, a stream of molecules through
@@ -131,8 +136,8 @@ def build_lm(cfg: LMConfig, seed: int = 0,
 
 def decode(lm: ServedLM, cache: tfm.Params, tokens: torch.Tensor,
            cur_index: int) -> torch.Tensor:
-    """One decode step of ``lm``: logits (B, V) f32; ``cache`` is
-    updated in place."""
+    """One decode step of ``lm`` on (B, 1) token ids or (B, 1, d)
+    embeddings: logits (B, V) f32; ``cache`` is updated in place."""
     logits, _ = tfm.decode_step(lm.params, lm.cfg, cache, tokens, cur_index,
                                 head=lm.head)
     return logits
@@ -146,22 +151,31 @@ def _sync(dev: torch.device) -> None:
 def greedy_decode(lm: ServedLM, batch: int, cache_len: int, n_tokens: int,
                   cache: Optional[tfm.Params] = None) -> DecodeRun:
     """Greedy decode of ``n_tokens`` tokens from token 0 at position 0.
-    The first step warms up; the host clock runs over the other
-    ``n_tokens - 1`` steps and ends in a synchronize."""
+    A non-token frontend (audio frames, image patches) is fed zero
+    embeddings (B, 1, d_model) at every step, as the JAX launcher feeds
+    its frontend stub; the argmax ids are still returned. The first step
+    warms up; the host clock runs over the other ``n_tokens - 1`` steps
+    and ends in a synchronize."""
     if not 1 <= n_tokens <= cache_len:
         raise ValueError(f"n_tokens={n_tokens} must be in [1, cache_len="
                          f"{cache_len}]")
     if cache is None:
         cache = tfm.init_cache(lm.cfg, batch, cache_len, lm.device)
     cache_bytes = quantized_bytes(cache)
+    embeds = None
+    if lm.cfg.frontend != "token":
+        embeds = torch.zeros((batch, 1, lm.cfg.d_model), dtype=lm.cfg.dtype,
+                             device=lm.device)
     tok = torch.zeros((batch, 1), dtype=torch.long, device=lm.device)
     out = []
-    tok = decode(lm, cache, tok, 0).argmax(-1, keepdim=True)
+    tok = decode(lm, cache, tok if embeds is None else embeds,
+                 0).argmax(-1, keepdim=True)
     out.append(tok)
     _sync(lm.device)
     t0 = time.perf_counter()
     for i in range(1, n_tokens):
-        tok = decode(lm, cache, tok, i).argmax(-1, keepdim=True)
+        tok = decode(lm, cache, tok if embeds is None else embeds,
+                     i).argmax(-1, keepdim=True)
         out.append(tok)
     _sync(lm.device)
     return DecodeRun(torch.cat(out, dim=1), time.perf_counter() - t0,

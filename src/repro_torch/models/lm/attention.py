@@ -1,68 +1,87 @@
-"""GQA decode attention with a KV cache, optionally int8-quantized.
+"""GQA attention: the q-chunked causal prefill and the KV-cache decode.
 
-Counterpart of the decode half of ``repro/models/lm/attention.py``
-(``init_kv_cache``, ``_project_qkv``, ``decode_attention``). With
-``cfg.kv_quant`` the new token's K and V rows are quantized and written
-into the cache by one launch of the act-quant kernel's KV entry (K5,
-per-token abs-max, the scale taken in the activation dtype as the JAX
-decode takes it; replicated heads read their kv head by index), and the
-attention over the
-int8 cache runs in the int8-KV decode kernel (K6), which dequantizes and
-computes the softmax in float32 (as the TPU kernel does; the JAX jnp
-path dequantizes and takes the logits in the activation dtype, so in
-bf16 the two agree to bf16 rounding). Without ``kv_quant`` the attention
-is plain PyTorch, as the JAX package leaves it to XLA.
+Counterpart of ``repro/models/lm/attention.py`` (``init_attention``,
+``_project_qkv``, ``causal_attention``, ``init_kv_cache``,
+``decode_attention``).
+
+The prefill (``causal_attention``) keeps the reference's blockwise
+formulation: query blocks of ``min(cfg.attn_chunk_q, S)`` rows, each
+against its full row of keys, the causal mask filled with -1e30, the
+logits in the activation dtype, the softmax in float32 and cast back,
+then P·V and the output projection. The reference is plain jnp, so this
+is plain PyTorch; ``scaled_dot_product_attention`` would round bf16
+elsewhere than the reference does.
+
+With ``cfg.kv_quant`` and ``kv_bits=8`` the new token's K and V rows are
+quantized and written into the cache by one launch of the act-quant
+kernel's KV entry (K5, per-token abs-max, the scale taken in the
+activation dtype as the JAX decode takes it; replicated heads read their
+kv head by index), and the attention over the int8 cache runs in the
+int8-KV decode kernel (K6), which dequantizes and computes the softmax
+in float32 (as the TPU kernel does; the JAX jnp path dequantizes and
+takes the logits in the activation dtype, so in bf16 the two agree to
+bf16 rounding). With ``kv_bits=4`` the cache holds ``hd // 2`` bytes of
+packed nibbles per row (``core.quantizers.pack_int4``) and both the
+write and the attention are the reference's jnp formulation in plain
+PyTorch: no kernel of either package serves the int4 cache. Without
+``kv_quant`` the attention is plain PyTorch, as the JAX package leaves
+it to XLA.
 
 The cache is updated in place: the new token's row is written at
 ``cur_index`` into the tensors the caller passed, which are also
 returned. ``cur_index`` is a Python int, and ``cur_index >= cache_len``
 raises ``ValueError`` (JAX's ``dynamic_update_index_in_dim`` would
-silently clamp it to the last row). Training and prefill
-(``causal_attention``) and the int4 cache (``kv_bits=4``) are not ported.
+silently clamp it to the last row).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.attention_norm import l2_normalize
+from repro_torch.core.quantizers import (pack_int4, qmax, scale_from_amax,
+                                         unpack_int4)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.lm.layers import apply_rope, qlinear
+from repro_torch.models.lm.layers import (apply_rope, dense_init,
+                                          params_to_torch, qlinear)
 
-__all__ = ["init_kv_cache", "decode_attention"]
+__all__ = ["attention_arrays", "init_attention", "causal_attention",
+           "init_kv_cache", "decode_attention"]
 
 Cache = Dict[str, torch.Tensor]
 
 
-def _check_kv_bits(cfg) -> None:
-    if cfg.kv_quant and cfg.kv_bits != 8:
-        raise NotImplementedError(
-            f"kv_bits={cfg.kv_bits}: only the int8 KV cache is ported "
-            "(the packed int4 cache is listed in ROADMAP.md §A)")
+def attention_arrays(cfg, rng: np.random.Generator,
+                     depth: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """The attention block's parameters as float32 numpy arrays, with the
+    shapes of the JAX ``init_attention`` (``bq/bk/bv`` zeros when
+    ``qkv_bias``, ``tau = attn_tau`` when ``qk_norm``), stacked on a
+    leading ``depth`` axis when given."""
+    d, hd, nh, nkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    lead = (depth,) if depth else ()
+    p = {"wq": dense_init(rng, d, nh * hd, depth),
+         "wk": dense_init(rng, d, nkv * hd, depth),
+         "wv": dense_init(rng, d, nkv * hd, depth),
+         "wo": dense_init(rng, nh * hd, d, depth)}
+    if cfg.qkv_bias:
+        p.update(bq=np.zeros(lead + (nh * hd,), np.float32),
+                 bk=np.zeros(lead + (nkv * hd,), np.float32),
+                 bv=np.zeros(lead + (nkv * hd,), np.float32))
+    if cfg.qk_norm:
+        p["tau"] = np.full(lead, cfg.attn_tau, np.float32)
+    return p
 
 
-def init_kv_cache(cfg, batch: int, seq: int, dtype: torch.dtype,
-                  device: DeviceLike = None) -> Cache:
-    _check_kv_bits(cfg)
-    device = resolve_device(device)
-    nkv, hd = cfg.n_kv_heads * cfg.kv_replicate, cfg.hd
-    if cfg.kv_quant:
-        return {
-            "k_q": torch.zeros((batch, nkv, seq, hd), dtype=torch.int8,
-                               device=device),
-            "v_q": torch.zeros((batch, nkv, seq, hd), dtype=torch.int8,
-                               device=device),
-            "k_s": torch.zeros((batch, nkv, seq), dtype=torch.float32,
-                               device=device),
-            "v_s": torch.zeros((batch, nkv, seq), dtype=torch.float32,
-                               device=device),
-        }
-    return {"k": torch.zeros((batch, nkv, seq, hd), dtype=dtype,
-                             device=device),
-            "v": torch.zeros((batch, nkv, seq, hd), dtype=dtype,
-                             device=device)}
+def init_attention(cfg, rng=0,
+                   device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """One attention block's random parameters (the JAX
+    ``init_attention``'s shapes, dtypes and scales), drawn with numpy from
+    ``rng`` (a seed or a ``np.random.Generator``), not JAX's bits."""
+    return params_to_torch(attention_arrays(cfg, np.random.default_rng(rng)),
+                           cfg, resolve_device(device))
 
 
 def _project_qkv(params, x, cfg, positions):
@@ -85,6 +104,76 @@ def _project_qkv(params, x, cfg, positions):
     return q, k, v, scale
 
 
+def causal_attention(params, x: torch.Tensor, cfg,
+                     positions: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Full prefill attention. x: (B, S, d) -> (B, S, d). Query blocks of
+    ``min(cfg.attn_chunk_q, S)`` rows, each against its full row, so the
+    (S, S) scores of all heads are never held at once; ``S`` must be a
+    multiple of the block (``ValueError``)."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v, scale = _project_qkv(params, x, cfg, positions)
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = q.reshape(B, S, nkv, nh // nkv, hd)
+    bq = min(cfg.attn_chunk_q, S)
+    if S % bq:
+        raise ValueError(f"S={S} % chunk {bq} != 0")
+    row_ids = torch.arange(S, device=x.device)
+    outs = []
+    for i in range(S // bq):
+        qi = q[:, i * bq:(i + 1) * bq]                      # (B,bq,kv,g,hd)
+        logits = torch.einsum("bqkgd,bskd->bkgqs", qi, k) * scale
+        q_pos = i * bq + torch.arange(bq, device=x.device)
+        mask = row_ids[None, :] <= q_pos[:, None]           # (bq, S)
+        logits = logits.masked_fill(~mask, -1e30)
+        w = torch.softmax(logits.to(torch.float32), dim=-1).to(x.dtype)
+        outs.append(torch.einsum("bkgqs,bskd->bqkgd", w, v))
+    out = torch.cat(outs, dim=1).reshape(B, S, nh * hd)
+    return qlinear(out, params["wo"], cfg.quant_mode)
+
+
+# --- decode -------------------------------------------------------------------
+
+def init_kv_cache(cfg, batch: int, seq: int, dtype: torch.dtype,
+                  device: DeviceLike = None) -> Cache:
+    device = resolve_device(device)
+    nkv, hd = cfg.n_kv_heads * cfg.kv_replicate, cfg.hd
+    if cfg.kv_quant:
+        if cfg.kv_bits not in (4, 8):
+            raise ValueError(f"kv_bits={cfg.kv_bits}: expected 8 or 4")
+        w, qdt = (hd, torch.int8) if cfg.kv_bits == 8 else (hd // 2,
+                                                            torch.uint8)
+        return {
+            "k_q": torch.zeros((batch, nkv, seq, w), dtype=qdt,
+                               device=device),
+            "v_q": torch.zeros((batch, nkv, seq, w), dtype=qdt,
+                               device=device),
+            "k_s": torch.zeros((batch, nkv, seq), dtype=torch.float32,
+                               device=device),
+            "v_s": torch.zeros((batch, nkv, seq), dtype=torch.float32,
+                               device=device),
+        }
+    return {"k": torch.zeros((batch, nkv, seq, hd), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((batch, nkv, seq, hd), dtype=dtype,
+                             device=device)}
+
+
+def _append_kv_int4(k_new, v_new, cache: Cache, cur_index: int) -> None:
+    """The reference's int4 KV write: per-row abs-max scale
+    ``max(|row|, 1e-8) / 7`` in the activation dtype (widened to
+    float32), codes ``clip(round(row / scale), -7, 7)`` packed two to a
+    byte, stored at ``cur_index``."""
+    for name, rows in (("k", k_new), ("v", v_new)):
+        s = scale_from_amax(rows.abs().amax(dim=-1), 4).to(torch.float32)
+        q = torch.clamp(torch.round(rows.to(torch.float32) / s[..., None]),
+                        -qmax(4), qmax(4)).to(torch.int8)
+        cache[f"{name}_q"][:, :, cur_index] = pack_int4(q)
+        cache[f"{name}_s"][:, :, cur_index] = s
+
+
 def decode_attention(params, x: torch.Tensor, cfg, cache: Cache,
                      cur_index: int):
     """One decode step. x: (B, 1, d); the cache holds ``cache_len`` past
@@ -94,7 +183,6 @@ def decode_attention(params, x: torch.Tensor, cfg, cache: Cache,
 
     Raises ``ValueError`` when ``cur_index`` is not in ``[0, cache_len)``.
     """
-    _check_kv_bits(cfg)
     B = x.shape[0]
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     seq = (cache["k_q"] if cfg.kv_quant else cache["k"]).shape[2]
@@ -109,7 +197,7 @@ def decode_attention(params, x: torch.Tensor, cfg, cache: Cache,
     g = nh // nkv
     q = q[:, 0].reshape(B, nkv, g, hd)               # (B, kv_eff, g, hd)
 
-    if cfg.kv_quant:
+    if cfg.kv_quant and cfg.kv_bits == 8:
         ops.append_kv_int8(k_new, v_new, cache["k_q"], cache["k_s"],
                            cache["v_q"], cache["v_s"], cur_index,
                            cfg.kv_replicate)
@@ -121,18 +209,26 @@ def decode_attention(params, x: torch.Tensor, cfg, cache: Cache,
             cache["v_q"].reshape(rows, seq, hd), cache["v_s"].reshape(rows,
                                                                       seq),
             cur_index + 1, scale)
-        out = out.to(x.dtype).reshape(B, 1, nh * hd)
+        return qlinear(out.to(x.dtype).reshape(B, 1, nh * hd), params["wo"],
+                       cfg.quant_mode), cache
+
+    if cfg.kv_replicate > 1:
+        # contiguous repeat keeps the q-group -> kv-head mapping
+        k_new = torch.repeat_interleave(k_new, cfg.kv_replicate, dim=1)
+        v_new = torch.repeat_interleave(v_new, cfg.kv_replicate, dim=1)
+    if cfg.kv_quant:
+        _append_kv_int4(k_new, v_new, cache, cur_index)
+        k = (unpack_int4(cache["k_q"]).to(x.dtype)
+             * cache["k_s"][..., None].to(x.dtype))
+        v = (unpack_int4(cache["v_q"]).to(x.dtype)
+             * cache["v_s"][..., None].to(x.dtype))
     else:
-        if cfg.kv_replicate > 1:
-            # contiguous repeat keeps the q-group -> kv-head mapping
-            k_new = torch.repeat_interleave(k_new, cfg.kv_replicate, dim=1)
-            v_new = torch.repeat_interleave(v_new, cfg.kv_replicate, dim=1)
         cache["k"][:, :, cur_index] = k_new.to(cache["k"].dtype)
         cache["v"][:, :, cur_index] = v_new.to(cache["v"].dtype)
         k, v = cache["k"], cache["v"]
-        logits = torch.einsum("bkgd,bksd->bkgs", q, k) * scale
-        valid = torch.arange(seq, device=x.device) <= cur_index
-        logits = logits.masked_fill(~valid, -1e30)
-        w = torch.softmax(logits.to(torch.float32), dim=-1).to(x.dtype)
-        out = torch.einsum("bkgs,bksd->bkgd", w, v).reshape(B, 1, nh * hd)
+    logits = torch.einsum("bkgd,bksd->bkgs", q, k) * scale
+    valid = torch.arange(seq, device=x.device) <= cur_index
+    logits = logits.masked_fill(~valid, -1e30)
+    w = torch.softmax(logits.to(torch.float32), dim=-1).to(x.dtype)
+    out = torch.einsum("bkgs,bksd->bkgd", w, v).reshape(B, 1, nh * hd)
     return qlinear(out, params["wo"], cfg.quant_mode), cache

@@ -1,8 +1,10 @@
 """LM architecture configuration: counterpart of
-``repro/models/lm/config.py``'s ``LMConfig``, with the same fields and
-defaults. ``dtype`` (activations) and ``param_dtype`` are ``torch.dtype``s.
-The sharding, remat and chunking fields are kept so configs copy over
-unchanged; the port's decode does not read them.
+``repro/models/lm/config.py``'s ``LMConfig``, ``ShapeCell`` and
+``SHAPES``, with the same fields, defaults and values. ``dtype``
+(activations) and ``param_dtype`` are ``torch.dtype``s. The sharding,
+remat and SSM chunking fields are kept so configs copy over unchanged;
+the port reads ``attn_chunk_q`` (the prefill's query block) and not
+those.
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ from typing import Any, Optional
 
 import torch
 
-__all__ = ["LMConfig"]
+__all__ = ["LMConfig", "ShapeCell", "SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,3 +131,20 @@ class LMConfig:
         moe_p = self.n_layers * self.n_experts * 3 * self.d_model * self.d_ff
         active = self.n_layers * self.top_k * 3 * self.d_model * self.d_ff
         return int(total - moe_p + active)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One assigned (arch x input-shape) cell."""
+    shape_name: str          # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                # train | prefill | decode
+
+
+SHAPES = (
+    ShapeCell("train_4k", 4096, 256, "train"),
+    ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    ShapeCell("decode_32k", 32768, 128, "decode"),
+    ShapeCell("long_500k", 524288, 1, "decode"),
+)

@@ -3,19 +3,22 @@
 Counterpart of ``repro/models/lm/layers.py``. ``qlinear``'s serve modes
 are a dequantize-next-to-compute product with no activation
 quantization, ``(x @ w_q.to(x.dtype)) * w_scale``: the JAX package leaves
-it to XLA, and the port to ``torch.matmul``. ``qat_w4a8`` (the LM's QAT)
-belongs to the LM family's slice and is not ported.
+it to XLA, and the port to ``torch.matmul``. ``qat_w4a8`` (the LM's
+training-time fake quantization) is ROADMAP.md §A item 1b and raises
+``NotImplementedError`` until then.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.quantizers import unpack_int4
 
-__all__ = ["rmsnorm", "qlinear", "mlp_swiglu", "mlp_squared_relu",
-           "apply_mlp", "rope_freqs", "apply_rope"]
+__all__ = ["rmsnorm", "dense_init", "params_to_torch", "qlinear",
+           "mlp_swiglu", "mlp_squared_relu", "apply_mlp", "rope_freqs",
+           "apply_rope"]
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
@@ -25,6 +28,29 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
         x = x.to(torch.float32)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * w.to(x.dtype)).to(dt)
+
+
+def dense_init(rng: np.random.Generator, fan_in: int, fan_out: int,
+               depth: Optional[int] = None) -> np.ndarray:
+    """N(0, 1) / sqrt(fan_in) float32 weights, drawn with numpy (the JAX
+    ``dense_init``'s scale, not its bits): ``(fan_in, fan_out)``, or
+    stacked ``(depth, fan_in, fan_out)`` with one draw per matrix, in
+    order."""
+    w = np.empty((depth or 1, fan_in, fan_out), np.float32)
+    for i in range(w.shape[0]):
+        rng.standard_normal((fan_in, fan_out), dtype=np.float32, out=w[i])
+    w /= np.sqrt(np.float32(fan_in))
+    return w if depth else w[0]
+
+
+def params_to_torch(tree, cfg, device: torch.device):
+    """A nested dict of numpy arrays -> tensors on ``device``, every leaf
+    in ``cfg.param_dtype`` but ``tau``, which stays float32 as in JAX."""
+    if isinstance(tree, dict):
+        return {k: (torch.from_numpy(v).to(device) if k == "tau"
+                    else params_to_torch(v, cfg, device))
+                for k, v in tree.items()}
+    return torch.from_numpy(tree).to(device=device, dtype=cfg.param_dtype)
 
 
 def qlinear(x: torch.Tensor, w, mode: str = "none",
@@ -41,8 +67,8 @@ def qlinear(x: torch.Tensor, w, mode: str = "none",
         y = (x @ w_q.to(x.dtype)) * w_scale.to(x.dtype)
     elif mode == "qat_w4a8":
         raise NotImplementedError(
-            "qat_w4a8 is training-time fake quantization: the training "
-            "slice (ROADMAP.md §A) has not been ported")
+            "qat_w4a8 is training-time fake quantization: the LM's QAT is "
+            "ROADMAP.md §A item 1b, not ported yet")
     else:
         raise ValueError(f"unknown quant mode {mode!r}")
     if bias is not None:

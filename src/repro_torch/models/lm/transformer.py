@@ -1,13 +1,16 @@
-"""LM assembly for decode: parameters, cache and the decode step of the
-transformer block pattern.
+"""LM assembly: parameters, the prefill forward and loss, the cache and
+the decode step of the transformer block pattern.
 
-Counterpart of ``init_lm``, ``init_cache`` and ``decode_step`` of
-``repro/models/lm/transformer.py``. The parameter tree has the JAX
-package's layout (nested dicts, per-layer leaves stacked on a leading
-depth axis, ``(q, scale)`` tuples once quantized), so a JAX tree crosses
-over through ``weights.lm_params_from_numpy``. Where the JAX package
-scans over layers, the port loops over them in Python. The ``zamba2`` and
-``xlstm`` patterns and MoE blocks are not ported.
+Counterpart of ``n_groups``, ``init_lm``, ``forward``, ``lm_loss``,
+``init_cache`` and ``decode_step`` of ``repro/models/lm/transformer.py``.
+The parameter tree has the JAX package's layout (nested dicts, per-layer
+leaves stacked on a leading depth axis, ``(q, scale)`` tuples once
+quantized), so a JAX tree crosses over through
+``weights.lm_params_from_numpy``. Where the JAX package scans over
+layers, the port loops over them in Python. The ``zamba2`` and ``xlstm``
+patterns and MoE blocks are ROADMAP.md §A item 2 and raise
+``NotImplementedError``. ``lm_loss`` is its value only: its gradient is
+item 1b's.
 """
 from __future__ import annotations
 
@@ -19,9 +22,11 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.lm import attention as attn
 from repro_torch.models.lm.config import LMConfig
-from repro_torch.models.lm.layers import apply_mlp, rmsnorm
+from repro_torch.models.lm.layers import (apply_mlp, dense_init,
+                                          params_to_torch, rmsnorm)
 
-__all__ = ["init_lm", "init_cache", "lm_head", "decode_step"]
+__all__ = ["n_groups", "init_lm", "forward", "lm_loss", "init_cache",
+           "lm_head", "decode_step"]
 
 Params = Dict[str, Any]
 
@@ -30,10 +35,16 @@ def _check_supported(cfg: LMConfig) -> None:
     if cfg.block_pattern != "transformer":
         raise NotImplementedError(
             f"block pattern {cfg.block_pattern!r}: only the transformer "
-            "pattern is ported (ROADMAP.md §A)")
+            "pattern is ported (ROADMAP.md §A item 2)")
     if cfg.moe:
         raise NotImplementedError("MoE blocks are not ported "
-                                  "(ROADMAP.md §A)")
+                                  "(ROADMAP.md §A item 2)")
+
+
+def n_groups(cfg: LMConfig) -> int:
+    """Entries on the parameter tree's depth axis: one per layer."""
+    _check_supported(cfg)
+    return cfg.n_layers
 
 
 def init_lm(cfg: LMConfig, seed: int = 0,
@@ -41,55 +52,34 @@ def init_lm(cfg: LMConfig, seed: int = 0,
     """Random parameters with the shapes and scales of the JAX
     ``init_lm`` (transformer pattern), drawn with numpy from ``seed``
     (not JAX's bits): embeddings N(0, 0.02^2), projections
-    N(0, 1) / sqrt(fan_in), norms 1, QKV biases 0, all ``cfg.param_dtype``.
+    N(0, 1) / sqrt(fan_in), norms 1, QKV biases 0, ``tau`` = attn_tau,
+    all ``cfg.param_dtype`` but ``tau`` (float32).
     """
     _check_supported(cfg)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    d, L, hd = cfg.d_model, cfg.n_layers, cfg.hd
-    nh, nkv = cfg.n_heads, cfg.n_kv_heads
-
-    def normal(*shape):
-        return rng.standard_normal(shape, dtype=np.float32)
-
-    def stacked(fan_in, fan_out):
-        w = np.empty((L, fan_in, fan_out), np.float32)
-        for i in range(L):
-            rng.standard_normal((fan_in, fan_out), dtype=np.float32,
-                                out=w[i])
-        w /= np.sqrt(np.float32(fan_in))
-        return w
+    d, L = cfg.d_model, cfg.n_layers
 
     def ones(*shape):
         return np.ones(shape, np.float32)
 
-    p: Params = {"embed": normal(cfg.vocab, d) * np.float32(0.02),
+    p: Params = {"embed": rng.standard_normal((cfg.vocab, d),
+                                              dtype=np.float32)
+                 * np.float32(0.02),
                  "final_norm": ones(d)}
     if not cfg.tie_embeddings:
-        p["lm_head"] = normal(d, cfg.vocab) / np.sqrt(np.float32(d))
-    a = {"wq": stacked(d, nh * hd), "wk": stacked(d, nkv * hd),
-         "wv": stacked(d, nkv * hd), "wo": stacked(nh * hd, d)}
-    if cfg.qkv_bias:
-        a.update(bq=np.zeros((L, nh * hd), np.float32),
-                 bk=np.zeros((L, nkv * hd), np.float32),
-                 bv=np.zeros((L, nkv * hd), np.float32))
-    if cfg.qk_norm:
-        a["tau"] = np.full((L,), cfg.attn_tau, np.float32)
-    blocks = {"ln1": ones(L, d), "ln2": ones(L, d), "attn": a}
+        p["lm_head"] = dense_init(rng, d, cfg.vocab)
+    blocks = {"ln1": ones(L, d), "ln2": ones(L, d),
+              "attn": attn.attention_arrays(cfg, rng, L)}
     if cfg.mlp_kind == "swiglu":
-        blocks["mlp"] = {"wg": stacked(d, cfg.d_ff),
-                         "wu": stacked(d, cfg.d_ff),
-                         "wd": stacked(cfg.d_ff, d)}
+        blocks["mlp"] = {"wg": dense_init(rng, d, cfg.d_ff, L),
+                         "wu": dense_init(rng, d, cfg.d_ff, L),
+                         "wd": dense_init(rng, cfg.d_ff, d, L)}
     elif cfg.mlp_kind == "squared_relu":
-        blocks["mlp"] = {"wi": stacked(d, cfg.d_ff),
-                         "wd": stacked(cfg.d_ff, d)}
+        blocks["mlp"] = {"wi": dense_init(rng, d, cfg.d_ff, L),
+                         "wd": dense_init(rng, cfg.d_ff, d, L)}
     p["blocks"] = blocks
-
-    def to_torch(tree):
-        if isinstance(tree, dict):
-            return {k: to_torch(v) for k, v in tree.items()}
-        return torch.from_numpy(tree).to(device=dev, dtype=cfg.param_dtype)
-    return to_torch(p)
+    return params_to_torch(p, cfg, dev)
 
 
 def init_cache(cfg: LMConfig, batch: int, seq: int,
@@ -121,21 +111,70 @@ def lm_head(params: Params, cfg: LMConfig) -> torch.Tensor:
     return head.to(cfg.dtype)
 
 
+def _norm(cfg: LMConfig):
+    def norm(h, w):
+        return rmsnorm(h, w, f32_stats=cfg.norm_f32)
+    return norm
+
+
+def forward(params: Params, cfg: LMConfig,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None):
+    """Full-sequence forward (the prefill). tokens: (B, S) integer ids,
+    or embeds: (B, S, d) for non-token frontends. Returns (logits (B, S,
+    V) float32, aux): ``aux`` is a 0-dim float32 zero, the MoE balance
+    loss that dense blocks do not have."""
+    _check_supported(cfg)
+    if embeds is not None:
+        x = embeds.to(cfg.dtype)
+    else:
+        x = params["embed"][tokens.long()].to(cfg.dtype)
+    norm = _norm(cfg)
+    for i in range(n_groups(cfg)):
+        g = _layer(params["blocks"], i)
+        x = x + attn.causal_attention(g["attn"], norm(x, g["ln1"]), cfg)
+        if cfg.mlp_kind != "none":
+            x = x + apply_mlp(g["mlp"], norm(x, g["ln2"]), cfg)
+    x = norm(x, params["final_norm"])
+    logits = (x @ lm_head(params, cfg)).to(torch.float32)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def lm_loss(params: Params, cfg: LMConfig,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Next-token cross entropy over ``batch["labels"]`` (B, S), under
+    ``batch.get("mask")`` (ones when absent) and divided by
+    ``max(sum(mask), 1)``, plus 0.01 x the aux loss."""
+    logits, aux = forward(params, cfg, tokens=batch.get("tokens"),
+                          embeds=batch.get("embeds"))
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(labels, dtype=torch.float32)
+    mask = mask.to(torch.float32)
+    ce = torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask),
+                                                       min=1.0)
+    return ce + 0.01 * aux
+
+
 def decode_step(params: Params, cfg: LMConfig, cache: Params,
                 tokens: torch.Tensor, cur_index: int,
                 head: Optional[torch.Tensor] = None):
-    """One decode step. tokens: (B, 1) integer ids; ``cur_index``: the position this
+    """One decode step. tokens: (B, 1) integer ids, or (B, 1, d)
+    embeddings for non-token frontends; ``cur_index``: the position this
     token takes, a Python int in ``[0, cache_len)`` (``ValueError``
     otherwise). Updates ``cache`` in place; returns (logits (B, V) f32,
     cache). ``head`` is :func:`lm_head`'s result, made here when omitted.
     """
     _check_supported(cfg)
-    x = params["embed"][tokens.long()].to(cfg.dtype)
-
-    def norm(h, w):
-        return rmsnorm(h, w, f32_stats=cfg.norm_f32)
-
-    for i in range(cfg.n_layers):
+    if tokens.ndim == 3:
+        x = tokens.to(cfg.dtype)
+    else:
+        x = params["embed"][tokens.long()].to(cfg.dtype)
+    norm = _norm(cfg)
+    for i in range(n_groups(cfg)):
         g = _layer(params["blocks"], i)
         c = _layer(cache["blocks"], i)
         h, _ = attn.decode_attention(g["attn"], norm(x, g["ln1"]), cfg, c,

@@ -22,6 +22,8 @@ engine (energies equal, forces to 1e-5 of the largest |force|), each
 replica's worker on its own stream; a rolling swap under traffic drops
 nothing; an MD session's failed-over chunk re-emits every frame index.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -34,7 +36,7 @@ from repro_torch.kernels.edge_softmax import edge_softmax_fused
 from repro_torch.kernels.mddq_kernel import mddq_encode_kernel, probe_vectors
 from repro_torch.kernels.quant_matmul import (w4a8_matmul, w4a8_matmul_f32a,
                                               w8a8_matmul, w8a8_matmul_f32a)
-from repro_torch.launch import serve
+from repro_torch.launch import serve, steps
 from repro_torch.md import MDConfig, MDEngine, pad_replicas
 from repro_torch.models.lm.transformer import init_cache
 from repro_torch.models.so3krates import So3kratesConfig
@@ -573,6 +575,35 @@ def test_lm_decode_on_card_matches_cpu_plain_path(cuda):
     diff = (caches[cuda]["blocks"]["k_q"].cpu().int()
             - caches["cpu"]["blocks"]["k_q"].int()).abs()
     assert int(diff.max()) <= 1
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "nemotron-4-15b"])
+def test_lm_prefill_and_int4_decode_on_card_match_cpu(cuda, arch):
+    """The prefill (float32 smoke config, W8 weights) on the card against
+    the CPU, with no kernel of the port launched; then the int4-KV decode
+    of the same prompt, card against CPU (a plain path: no launch)."""
+    cfg = dataclasses.replace(serve.lm_config(
+        arch, smoke=True, quant="serve_w8a8", kv_quant=True), kv_bits=4)
+    lm = {dev: serve.build_lm(cfg, seed=0, device=dev)
+          for dev in (cuda, "cpu")}
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(3, 16)))
+    before = (kv_append_int8.launches, decode_attention_int8kv.launches,
+              act_quant.launches)
+    full = {dev: steps.make_prefill_step(cfg)(
+        lm[dev].params, {"tokens": toks.to(lm[dev].device)}).cpu()
+        for dev in lm}
+    torch.testing.assert_close(full[cuda], full["cpu"], rtol=0,
+                               atol=1e-4 * float(full["cpu"].abs().max()))
+    caches = {dev: init_cache(cfg, 3, 16, dev) for dev in lm}
+    for i in range(16):
+        out = {dev: serve.decode(lm[dev], caches[dev], toks[:, i:i + 1].to(
+            lm[dev].device), i).cpu() for dev in lm}
+        torch.testing.assert_close(
+            out[cuda], out["cpu"], rtol=0,
+            atol=1e-4 * float(out["cpu"].abs().max()))
+    assert (kv_append_int8.launches, decode_attention_int8kv.launches,
+            act_quant.launches) == before
 
 
 SERVER_CFG = So3kratesConfig(feat=16, vec_feat=4, n_layers=2, n_rbf=4,

@@ -34,6 +34,20 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     assert out.stdout.strip() == "[]"
 
 
+def test_the_lm_prefill_modules_are_imported():
+    """The import check above covers the prefill slice: the step
+    functions, every config module of the port's registry and the
+    measurement tools behind chip_smoke.py's bounds."""
+    mods = set(_modules())
+    assert {"repro_torch.launch.steps",
+            "repro_torch.configs.so3krates_paper",
+            "repro_torch.tools.lm_prefill_gap",
+            "repro_torch.tools.so3_grad_conditioning"} <= mods
+    from repro_torch import configs
+    for arch in configs.ARCH_IDS:
+        assert configs._module(arch).__name__ in mods
+
+
 def test_no_source_file_imports_jax_or_repro():
     offenders = []
     for path in PKG.rglob("*.py"):

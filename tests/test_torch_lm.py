@@ -68,7 +68,7 @@ def test_config_fields_and_defaults_match_jax():
             assert t_fields[name] == default, name
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
 def test_arch_configs_match_jax(arch):
     for get in ("get_config", "get_smoke_config"):
         j, t = getattr(jconfigs, get)(arch), getattr(configs, get)(arch)
@@ -277,10 +277,27 @@ def test_decode_write_index_past_the_cache_raises():
 
 
 def test_int4_kv_cache_is_not_ported():
+    """The int4 KV cache is served: ``serve.greedy_decode`` over a uint8
+    cache of hd // 2 packed bytes per row runs with no
+    ``NotImplementedError`` and no kernel launched, and its
+    ``cache_bytes`` counts the packed rows and their scales. (Its
+    numbers against JAX are ``tests/test_torch_lm_prefill.py``'s.)"""
     cfg = dataclasses.replace(configs.get_smoke_config("qwen2-0.5b"),
-                              kv_quant=True, kv_bits=4)
-    with pytest.raises(NotImplementedError, match="kv_bits=4"):
-        tfm.init_cache(cfg, 1, 4, "cpu")
+                              kv_quant=True, kv_bits=4,
+                              quant_mode="serve_w8a8", dtype=torch.float32)
+    cache = tfm.init_cache(cfg, 2, 4, "cpu")
+    assert cache["blocks"]["k_q"].dtype == torch.uint8
+    assert cache["blocks"]["k_q"].shape == (cfg.n_layers, 2, 1, 4,
+                                            cfg.hd // 2)
+    lm = serve.build_lm(cfg, device="cpu")
+    before = (act_quant.launches, kv_append_int8.launches,
+              decode_attention_int8kv.launches)
+    run = serve.greedy_decode(lm, 2, 4, 4, cache=cache)
+    assert run.tokens.shape == (2, 4)
+    assert cache["blocks"]["k_q"].any() and cache["blocks"]["k_s"].all()
+    assert run.cache_bytes == 2 * 2 * 2 * 4 * (8 // 2 + 4)
+    assert (act_quant.launches, kv_append_int8.launches,
+            decode_attention_int8kv.launches) == before
 
 
 def test_qk_norm_and_kv_replicate_match_jax():
@@ -355,6 +372,26 @@ def test_kv_write_leaves_the_cache_as_the_stacked_write(monkeypatch, arch,
         assert torch.equal(new_cache[name].view(torch.int32),
                            old_cache[name].view(torch.int32))
     assert kv_append_int8.launches == 0
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "chameleon-34b"])
+def test_serve_cli_decodes_non_token_frontends(capsys, arch):
+    """Audio frames and image patches decode from zero (B, 1, d_model)
+    embeddings at every step, as the JAX launcher feeds its frontend
+    stub: every step's logits equal a decode of those embeddings."""
+    serve.main(["--workload", "lm", "--arch", arch, "--smoke", "--quant",
+                "serve_w8a8", "--kv-quant", "--tokens", "3", "--batch", "2",
+                "--cache-len", "4", "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith(f"arch={arch.split('-')[0]}-smoke ")
+    lm = serve.build_lm(serve.lm_config(arch, smoke=True, quant="serve_w8a8",
+                                        kv_quant=True), device="cpu")
+    run = serve.greedy_decode(lm, 2, 4, 3)
+    cache = tfm.init_cache(lm.cfg, 2, 4, "cpu")
+    zeros = torch.zeros((2, 1, lm.cfg.d_model))
+    want = torch.stack([serve.decode(lm, cache, zeros, i).argmax(-1)
+                        for i in range(3)], dim=1)
+    assert torch.equal(run.tokens, want)
 
 
 def test_serve_cli_runs_on_the_cpu(capsys, monkeypatch, tmp_path):
