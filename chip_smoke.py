@@ -217,6 +217,45 @@
    float32) decodes 8 steps on the card and on the CPU within 1e-4, with
    no kernel launched. The phase within 150 s; every number beside the
    card's name and power limit.
+11. Trains the dense LM (``launch/train.py`` -> ``steps.make_train_step``
+   -> ``lm_loss`` -> ``ef_compress`` -> ``AdamW``; no kernel of the port is
+   on this path, as none of the reference's is). (a) ``train.main`` in
+   this process, as a user calls it: qwen2-0.5b at full width and depth
+   (24 layers, d_model 896, vocab 151,936, tied; bf16 activations,
+   float32 parameters), ``--steps 30 --batch 8 --seq 256 --quant qat_w4a8
+   --grad-compression ef8``, counted: every kernel's launches 0, every
+   logged loss finite, the launcher's own last < first, the final
+   checkpoint restored with every digest verified and its ``extra["loss"]``
+   the last loss, no data thread left. Prints ms per step from the
+   launcher's clock (steps 10 to 29), tokens/s, peak device memory, one
+   profiled ``make_train_step`` call (device busy, idle share, the ten
+   longest kernel groups) and the step's bound (``train_work``: three
+   times the forward's products at 989 TFLOP/s bf16, against the bytes of
+   the parameters, the moments and the residual read and written once);
+   then 10 plain steps (``--quant none``) for the plain step's ms. (b) One
+   launcher step (``tools/lm_train_gap.launcher_step``) at qwen2-0.5b's
+   width, two layers deep, float32, B=2, S=64, weights from numpy seed 0,
+   the batch from ``synthetic_token_batches(seed=17)``, on the card and on
+   the CPU: the loss within 1e-5 relative, every gradient leaf and every
+   parameter after the update within max(1e-4, F32_GRAD_FACTOR x the
+   CPU's own float32 spread on that leaf) of its largest |value|, the
+   spread being the largest gap of N_JITTERS more CPU runs with the
+   embedding table jittered by an ulp (phase 8's method), printed beside
+   each bound; ``quant none`` (a second card run held to the same bounds:
+   the embedding's backward sums repeated tokens with atomics), then
+   qat_w4a8 with ef8, held with the CPU's quantization sites pinned on the
+   card (the A8 and W4 x / scale and the error-feedback codes: a code
+   that moves at a rounding tie moves its entry's first update by the
+   whole learning rate; unpinned, a miss must come with moved A8 codes or
+   gates, which are printed with the other sites'), and ``ef_compress``
+   on the CPU's gradients bit for bit, card against CPU. (c) ``python -m repro_torch.launch.train --arch
+   qwen2-0.5b --smoke --steps 40 --batch 4 --seq 64 --quant qat_w4a8
+   --grad-compression ef8 --ckpt-every 10 --spmd-timeout 60`` as a
+   subprocess, killed with SIGKILL once step 20 is checkpointed; the same
+   command then prints ``[resume] restoring step N`` (N the newest valid
+   step), finishes, and leaves step 39 valid with every digest verified
+   and no ``step_*.tmp.*`` orphan. The phase within 180 s; every number
+   beside the card's name and power limit.
 
 Phase 2 also holds the act-quant kernel bit for bit (float32 and bf16),
 its KV entry (the decode's whole int8 KV write) byte for byte over a
@@ -343,6 +382,20 @@ NEW_BATCH, NEW_SEQ, NEW_DECODE, INT4_STEPS = 2, 256, 16, 8
 # 2.37, 2.29, 2.45% at 1, 2, 4, 8, 12 layers; it levels off)
 PREFILL_CHUNK_TOL, PREFILL_F32_TOL, PREFILL_INT8KV_TOL = 0.0, 5e-3, 6e-2
 PREFILL_PHASE_S = 150.0
+# phase 11: the training launcher at qwen2-0.5b's full width and depth
+# with its default batch and sequence, LM_TRAIN_STEPS steps in qat_w4a8
+# with ef8 and LM_PLAIN_STEPS plain steps beside them; one launcher step
+# on the card against the CPU (repro_torch.tools.lm_train_gap's config:
+# 2 layers, B=2, S=64, float32), each leaf within max(1e-4,
+# F32_GRAD_FACTOR x the CPU's spread over N_JITTERS runs with the
+# embedding table jittered by an ulp, the QAT step's sites pinned:
+# phase 8's method and factor; on the LM a further jittered run needed at
+# most 2.88 of that spread, gradients and updated parameters, seeds 0-2
+# of the same tool); the kill and resume drill; the phase's limit in
+# seconds
+LM_TRAIN_STEPS, LM_PLAIN_STEPS = 30, 10
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 256
+LM_TRAIN_PHASE_S = 180.0
 TRUNK_W8 = (64, 192)         # wq | wk | wm
 TRUNK_W4 = (64, 32)          # wa | wb
 OTHER_W8 = {"w_upd": (64, 64), "w_vnorm": (16, 64), "ro_w1": (80, 64),
@@ -3699,9 +3752,10 @@ def host_ms(torch, fn, reps):
     return statistics.median(lat)
 
 
-def profile_prefill(torch, fn, wall_ms):
+def profile_prefill(torch, fn, wall_ms, what="prefill"):
     """Device busy, idle share and the ten longest kernels of one profiled
-    prefill, beside the median unprofiled host time ``wall_ms``."""
+    call of ``fn`` (a prefill, or ``what``), beside the median unprofiled
+    host time ``wall_ms``."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3713,7 +3767,7 @@ def profile_prefill(torch, fn, wall_ms):
         print("  profiler: no device time recorded (idle share not "
               "measured)")
         return
-    print(f"  profiled prefill: device busy {busy:.3f} ms over "
+    print(f"  profiled {what}: device busy {busy:.3f} ms over "
           f"{sum(r[1] for r in rows)} device events; unprofiled "
           f"{wall_ms:.3f} ms -> idle share {1 - busy / wall_ms:.3f}")
     for t_ms, count, key in rows[:10]:
@@ -3961,6 +4015,325 @@ def run_prefill_and_decode(torch, dev, lm):
     return {"launches": launches, "held": held, "k6_us": k6_us}
 
 
+# --- phase 11: the dense LM trains ------------------------------------------
+
+def train_work(torch, cfg, B, S, use_ef):
+    """(bytes, operations) of one launcher step at ``cfg``, counted from
+    the code: the forward's products as ``prefill_work`` counts them,
+    three times (the backward takes two products per forward product,
+    the attention's two included), at 2 operations a multiply-add; the
+    bytes of the state the step reads once and writes once: the float32
+    parameters and AdamW's two moments (and the error-feedback residual
+    under ef8), and the token ids and labels."""
+    from repro_torch import tree
+    from repro_torch.launch.steps import abstract_params
+    n_params = sum(t.numel() for t in tree.leaves(abstract_params(cfg)))
+    fwd_ops = prefill_work(cfg, 0, B, S)[1]
+    states = 3 + int(use_ef)
+    return 2 * states * 4 * n_params + B * S * 8, 3 * fwd_ops, n_params
+
+
+def producer_threads():
+    import threading
+    from repro_torch.data.tokens import PRODUCER_THREAD
+    return [t for t in threading.enumerate() if t.name == PRODUCER_THREAD]
+
+
+def launcher_run(torch, argv, what):
+    """``launch.train.main(argv)`` in this process, counted: (its returned
+    flags, {kernel: launches}); every kernel's count must read 0, every
+    logged loss be finite, the launcher's own closing check (last logged
+    loss below the first) hold, and no producer thread be left."""
+    from repro_torch.launch import train
+    try:
+        args, counts = counted_run(lambda: train.main(argv))
+    except AssertionError as exc:
+        raise SmokeFailure(f"{what}: the launcher's check failed: {exc}")
+    require(not nonzero(counts), f"{what}: kernels launched: "
+                                 f"{nonzero(counts)}")
+    losses = [f for _, f, _ in args._log]
+    require(all(np.isfinite(losses)), f"{what}: a logged loss is not "
+                                      f"finite: {losses}")
+    require(not producer_threads(), f"{what}: a data thread outlived the "
+                                    "run")
+    return args, counts
+
+
+def run_lm_train_full(torch, dev, ident):
+    """Phase 11 (a): the launcher at qwen2-0.5b's full width and depth,
+    qat_w4a8 with ef8, then the plain step beside it; the step profiled
+    and bounded. Returns the launches."""
+    import tempfile
+    from repro_torch import tree
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.tokens import synthetic_token_batches
+    from repro_torch.launch import steps
+    from repro_torch.tools.lm_train_gap import launcher_optimizer
+    B, S, n = LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="lm_train_") as root:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        args, counts = launcher_run(torch, [
+            "--arch", "qwen2-0.5b", "--steps", str(n), "--batch", str(B),
+            "--seq", str(S), "--quant", "qat_w4a8", "--grad-compression",
+            "ef8", "--ckpt-dir", f"{root}/qat"], "qat_w4a8 + ef8")
+        took = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        launches.update(counts)
+        cfg, log = args._cfg, {s: (f, t) for s, f, t in args._log}
+        require(sorted(log) == [0, 10, 20, n - 1], f"logged steps "
+                                                   f"{sorted(log)}")
+        ms = (log[n - 1][1] - log[10][1]) / (n - 11) * 1e3
+        mgr = CheckpointManager(f"{root}/qat")
+        require(mgr.all_steps() == [n - 1], f"checkpoints {mgr.all_steps()}")
+        restored = mgr.restore(n - 1, args._params, device=dev)
+        require(all(torch.equal(a, b) for a, b in zip(
+            tree.leaves(restored), tree.leaves(args._params))),
+            "the final checkpoint does not restore the final parameters")
+        require(mgr.extra(n - 1) == {"loss": log[n - 1][0]},
+                f"the checkpoint's extra {mgr.extra(n - 1)} is not the last "
+                "loss")
+        del restored
+        n_bytes, n_ops, n_params = train_work(torch, cfg, B, S, True)
+        b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+        print(f"  qwen2-0.5b full width ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, vocab {cfg.vocab}, {n_params / 1e6:.1f}M "
+              f"parameters, {str(cfg.dtype)[6:]} activations), B={B} S={S}, "
+              f"qat_w4a8 + ef8, "
+              f"{n} steps: losses " + ", ".join(
+                  f"{s}: {f:.4f}" for s, (f, _) in sorted(log.items()))
+              + f"; {ms:.3f} ms per step (the launcher's clock, steps 10 to "
+              f"{n - 1}), {B * S / ms * 1e3:.0f} tokens/s; peak device "
+              f"memory {peak:.2f} GiB; the run {took:.1f} s with its init "
+              f"and checkpoint; bound {b_ms:.3f} ms ({b_by}: "
+              f"{n_ops / 1e12:.3f} TFLOP at {BF16_OPS_PER_S / 1e12:.0f} "
+              f"TFLOP/s bf16, {n_bytes / 1e9:.3f} GB at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); launches 0; the final "
+              f"checkpoint restored with every digest verified [{ident}]")
+        # one make_train_step call profiled, beside its unprofiled time
+        opt = launcher_optimizer(n)
+        state = opt.init(args._params)
+        it = synthetic_token_batches(cfg, B, S, seed=17)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
+        it.close()
+        step = steps.make_train_step(cfg, opt)
+        wall = host_ms(torch, lambda: step(args._params, state, batch), 3)
+        s_bytes, s_ops, _ = train_work(torch, cfg, B, S, False)
+        s_ms, s_by = bound(s_bytes, s_ops, BF16_OPS_PER_S)
+        print(f"  make_train_step (qat_w4a8, no ef8): {wall:.3f} ms (median "
+              f"of 3, host clock), bound {s_ms:.3f} ms ({s_by})")
+        profile_prefill(torch, lambda: step(args._params, state, batch),
+                        wall, "make_train_step call")
+        del args, state, batch, step
+        torch.cuda.empty_cache()
+        # beside it, the plain step
+        m = LM_PLAIN_STEPS
+        args, counts = launcher_run(torch, [
+            "--arch", "qwen2-0.5b", "--steps", str(m), "--batch", str(B),
+            "--seq", str(S), "--ckpt-dir", f"{root}/plain"], "plain")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        log = {s: (f, t) for s, f, t in args._log}
+        p_ms = (log[m - 1][1] - log[0][1]) / (m - 1) * 1e3
+        print(f"  the plain step (--quant none --grad-compression none), "
+              f"{m} steps: losses " + ", ".join(
+                  f"{s}: {f:.4f}" for s, (f, _) in sorted(log.items()))
+              + f"; {p_ms:.3f} ms per step (steps 1 to {m - 1}), "
+              f"{B * S / p_ms * 1e3:.0f} tokens/s; launches 0 [{ident}]")
+        del args
+        torch.cuda.empty_cache()
+    return launches
+
+
+def run_lm_train_gap(torch, dev, ident):
+    """Phase 11 (b): one launcher step on the card against the CPU at
+    qwen2-0.5b's width, two layers deep, float32; ``quant none``, then
+    qat_w4a8 with ef8; ef_compress alone bit for bit."""
+    from repro_torch import tree
+    from repro_torch.data.tokens import synthetic_token_batches
+    from repro_torch.models.lm.transformer import init_lm
+    from repro_torch.optim.compression import ef_compress, ef_init
+    from repro_torch.tools.lm_train_gap import (
+        GAP_BATCH, GAP_SEQ, gap_config, launcher_optimizer, launcher_step,
+        moved_sites, qat_sites, spread, tree_gaps)
+    from repro_torch.tools.so3_grad_conditioning import N_JITTERS
+    opt = launcher_optimizer()
+    p_cpu = init_lm(gap_config(), seed=0, device="cpu")
+    p_card = tree.tree_map(lambda t: t.to(dev), p_cpu)
+    it = synthetic_token_batches(gap_config(), GAP_BATCH, GAP_SEQ, seed=17)
+    b_cpu = {k: torch.from_numpy(v) for k, v in next(it).items()}
+    it.close()
+    b_card = {k: v.to(dev) for k, v in b_cpu.items()}
+    for mode, use_ef in (("none", False), ("qat_w4a8", True)):
+        cfg, name = gap_config(mode), mode + " + ef8" * use_ef
+        t0 = time.perf_counter()
+        with qat_sites() as s_cpu:
+            host = launcher_step(cfg, opt, p_cpu, b_cpu, use_ef)
+        g_sp, p_sp, _ = spread(cfg, opt, p_cpu, b_cpu, use_ef, host, s_cpu,
+                               range(N_JITTERS))
+        g_bd = {k: max(1e-4, F32_GRAD_FACTOR * v) for k, v in g_sp.items()}
+        p_bd = {k: max(1e-4, F32_GRAD_FACTOR * v) for k, v in p_sp.items()}
+        cpu_s = time.perf_counter() - t0
+
+        def held(run, what):
+            rel = abs(float(run[0]) - float(host[0])) / abs(float(host[0]))
+            out = []
+            for kind, gaps, bd, sp in (
+                    ("gradient", tree_gaps(run[1], host[1]), g_bd, g_sp),
+                    ("parameter after the update",
+                     tree_gaps(run[3], host[3]), p_bd, p_sp)):
+                worst = max(gaps, key=lambda k: gaps[k] / bd[k])
+                print(f"  {name}{what}: worst {kind} leaf {worst} "
+                      f"{gaps[worst]:.3g} of its largest |value| (the CPU's "
+                      f"float32 spread {sp[worst]:.3g}, bound "
+                      f"{bd[worst]:.3g})")
+                out.append((gaps[worst] <= bd[worst], f"{name}{what}: "
+                            f"{kind} {worst} {gaps[worst]} > {bd[worst]}"))
+            print(f"  {name}{what}: loss {float(run[0]):.6f} against the "
+                  f"CPU's {float(host[0]):.6f}, {rel:.3g} relative (bound "
+                  "1e-05)")
+            out.append((rel <= 1e-5, f"{name}{what}: loss {rel} > 1e-5"))
+            bad = [w for ok, w in out if not ok]
+            return not bad, "; ".join(bad)
+        with qat_sites() as s_card:
+            card = launcher_step(cfg, opt, p_card, b_card, use_ef)
+        ok, what = held(card, ", card vs CPU")
+        if mode == "none":
+            require(ok, what)
+            # the card's own spread: the embedding's backward sums
+            # repeated tokens with atomics
+            again = launcher_step(cfg, opt, p_card, b_card, use_ef)
+            g2 = tree_gaps(again[1], card[1])
+            worst = max(g2, key=g2.get)
+            print(f"  {name}: a second card run against the first: worst "
+                  f"gradient leaf {worst} {g2[worst]:.3g} (embed "
+                  f"{g2['embed']:.3g}); held to the bound "
+                  f"{g_bd[worst]:.3g}")
+            require(all(g2[k] <= g_bd[k] for k in g2),
+                    f"{name}: two card runs differ past the bound: {g2}")
+            del again
+        else:
+            if not ok:
+                moved = moved_sites(s_card, s_cpu)
+                a8 = sum(m for (kind, _), m in zip(s_cpu, moved)
+                         if kind == "a127")
+                print(f"  {name}: codes or gates moved per site {moved} "
+                      f"(A8 {a8})")
+                require(a8 > 0, f"{what}, with no moved A8 code or gate")
+            with qat_sites(pin=s_cpu):
+                pinned = launcher_step(cfg, opt, p_card, b_card, use_ef)
+            require(*held(pinned, ", card with the CPU's quantization "
+                                  "sites (A8, W4, EF codes) pinned, vs CPU"))
+            # ef_compress alone, card against CPU on the CPU's gradients
+            g_card = tree.tree_map(lambda t: t.to(dev), host[1])
+            d_card, e_card = ef_compress(g_card, ef_init(g_card))
+            d_cpu, e_cpu = ef_compress(host[1], ef_init(host[1]))
+            same = all(torch.equal(a.cpu(), b) for a, b in zip(
+                tree.leaves((d_card, e_card.residual)),
+                tree.leaves((d_cpu, e_cpu.residual))))
+            print(f"  ef_compress on the CPU's gradients, card vs CPU: "
+                  f"dequantized gradients and residual bit for bit: {same}")
+            require(same, "ef_compress: card and CPU differ")
+            del pinned, g_card, d_card, e_card
+        print(f"  {name}: the CPU's step and {N_JITTERS} jittered runs took "
+              f"{cpu_s:.1f} s [{ident}]")
+        del card, host
+
+
+def run_lm_train_resume(torch, dev, ident):
+    """Phase 11 (c): the launcher as a user runs it, killed with SIGKILL
+    once step 20 is checkpointed, then the same command again. Returns
+    the lines to print (it runs beside (b), in a thread)."""
+    import os
+    import signal
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    src = Path(__file__).resolve().parent / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    with tempfile.TemporaryDirectory(prefix="lm_resume_") as ck:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "qwen2-0.5b", "--smoke", "--steps", "40", "--batch", "4",
+               "--seq", "64", "--quant", "qat_w4a8", "--grad-compression",
+               "ef8", "--ckpt-every", "10", "--spmd-timeout", "60",
+               "--ckpt-dir", ck]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            mgr = CheckpointManager(ck)
+            deadline = time.monotonic() + 120
+            while (proc.poll() is None and time.monotonic() < deadline
+                   and (mgr.latest_step() or 0) < 20):
+                time.sleep(0.02)
+            require(proc.poll() is None, "the run ended (or timed out) "
+                                         "before it was killed")
+            proc.send_signal(signal.SIGKILL)
+            require(proc.wait(timeout=30) == -signal.SIGKILL,
+                    "SIGKILL did not end the run")
+        finally:
+            proc.kill()
+            proc.stdout.close()
+        killed = time.perf_counter() - t0
+        newest = mgr.latest_step()
+        leftover = sorted(os.listdir(ck))
+        out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=120)
+        lines = ["  " + line for line in out.stdout.strip().splitlines()]
+        require(out.returncode == 0, f"the resumed run failed: "
+                                     f"{out.stderr[-2000:]}")
+        require(f"[resume] restoring step {newest} from" in out.stdout,
+                f"the resumed run did not restore step {newest}")
+        require(mgr.latest_step() == 39, f"newest step {mgr.latest_step()}")
+        arrays = mgr.restore_arrays(39)          # every digest verified
+        orphans = [p for p in os.listdir(ck) if ".tmp." in p]
+        require(not orphans, f"orphaned saves {orphans}")
+        lines.append(
+            f"  kill and resume: killed after {killed:.1f} s with "
+            f"{leftover} on disk, newest valid step {newest}; the same "
+            f"command resumed from it and finished: step 39 valid "
+            f"({len(arrays)} arrays, every digest verified), no orphan, "
+            f"{time.perf_counter() - t0:.1f} s in all [{ident}]")
+    return lines
+
+
+def run_lm_train(torch, dev):
+    """Phase 11 (the module docstring). Returns {"launches": ...}."""
+    import threading
+    t_phase, ident = time.perf_counter(), gpu_identity()
+    launches = run_lm_train_full(torch, dev, ident)
+    t_b = time.perf_counter()
+    print(f"  (a) took {t_b - t_phase:.1f} s")
+    print("  (b) one launcher step, card against CPU: qwen2-0.5b's width, "
+          "2 layers deep, B=2, S=64, float32; (c), the kill and resume "
+          "drill, runs beside it in a thread (its subprocesses are host "
+          "bound; (b) is the CPU's arithmetic, and neither is timed)")
+    drill = {}
+
+    def resume():
+        try:
+            drill["lines"] = run_lm_train_resume(torch, dev, ident)
+        except BaseException as exc:         # re-raised below
+            drill["error"] = exc
+    worker = threading.Thread(target=resume, name="lm-resume-drill")
+    worker.start()
+    try:
+        run_lm_train_gap(torch, dev, ident)
+    finally:
+        worker.join(300)
+    require(not worker.is_alive(), "the kill and resume drill did not end")
+    print(f"  (b) took {time.perf_counter() - t_b:.1f} s with (c) beside it")
+    print("  (c) kill and resume")
+    if "error" in drill:
+        raise drill["error"]
+    print("\n".join(drill["lines"]))
+    took = time.perf_counter() - t_phase
+    print(f"  phase 11 took {took:.1f} s [{ident}]")
+    require(took <= LM_TRAIN_PHASE_S, f"phase 11 took {took:.1f} s, over "
+                                      f"{LM_TRAIN_PHASE_S:.0f}")
+    return {"launches": launches}
+
+
 def main() -> int:
     src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch").is_dir():
@@ -4050,6 +4423,12 @@ def main() -> int:
           "published widths, one layer deep; the int4 KV cache")
     prefill = run_prefill_and_decode(torch, dev, lm_model)
     del lm_model
+    torch.cuda.empty_cache()
+    print("phase 11: the dense LM trains: the launcher at qwen2-0.5b's full "
+          f"width and depth (B={LM_TRAIN_BATCH}, S={LM_TRAIN_SEQ}, bf16, "
+          f"{LM_TRAIN_STEPS} steps qat_w4a8 + ef8, {LM_PLAIN_STEPS} plain); "
+          "one step card against CPU; kill and resume")
+    lm_train = run_lm_train(torch, dev)
     for row in rows:
         if row["name"] == "mddq_encode_kernel":
             row["training_shape"] = training["k4_training"]
@@ -4070,7 +4449,8 @@ def main() -> int:
                    "md_session": cluster["md_session"].get(row["name"], 0),
                    "training": training["launches"].get(row["name"], 0),
                    "health_plane": health["launches"].get(row["name"], 0),
-                   "lm_prefill": prefill["launches"].get(row["name"], 0)}
+                   "lm_prefill": prefill["launches"].get(row["name"], 0),
+                   "lm_train": lm_train["launches"].get(row["name"], 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     require("jax" not in sys.modules and "repro" not in sys.modules,

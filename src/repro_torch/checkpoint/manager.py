@@ -18,9 +18,10 @@ written by either package restores in the other.
 
 Trees are nested dicts (and lists or tuples) of tensors or arrays; keys
 join with ``/`` in the order JAX's ``tree_map_with_path`` visits them
-(dict keys sorted, sequences by index; ``None`` is no leaf). A tensor on
-the card is copied to the host before it is saved. The session layer
-(``repro_torch.sessions``) drives this manager for trajectory state.
+(``repro_torch.tree``: dict keys sorted, sequences by index; ``None`` is
+no leaf). A tensor on the card is copied to the host before it is saved.
+The session layer (``repro_torch.sessions``) drives this manager for
+trajectory state.
 """
 from __future__ import annotations
 
@@ -30,12 +31,14 @@ import os
 import re
 import shutil
 import tempfile
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.tree import items as _items
+from repro_torch.tree import unflatten as _unflatten
 
 __all__ = ["CheckpointError", "CheckpointManager"]
 
@@ -48,32 +51,6 @@ class CheckpointError(RuntimeError):
     manifest absent or unreadable, or an on-disk digest that no longer
     matches the manifest (torn write, bitflip). Callers fall back to an
     earlier step through ``latest_step()``."""
-
-
-def _items(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
-    """(key, leaf) pairs in JAX's visiting order."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [kv for k in sorted(tree)
-                for kv in _items(tree[k], prefix + (str(k),))]
-    if isinstance(tree, (list, tuple)):
-        return [kv for i, v in enumerate(tree)
-                for kv in _items(v, prefix + (str(i),))]
-    return [("/".join(prefix), tree)]
-
-
-def _unflatten(like, values: Dict[str, Any], prefix: Tuple[str, ...] = ()):
-    if like is None:
-        return None
-    if isinstance(like, dict):
-        return {k: _unflatten(v, values, prefix + (str(k),))
-                for k, v in like.items()}
-    if isinstance(like, (list, tuple)):
-        out = [_unflatten(v, values, prefix + (str(i),))
-               for i, v in enumerate(like)]
-        return type(like)(out) if isinstance(like, tuple) else out
-    return values["/".join(prefix)]
 
 
 def _host(x) -> np.ndarray:

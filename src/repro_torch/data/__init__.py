@@ -1,1 +1,2 @@
-"""Datasets of the port: the synthetic azobenzene MD set."""
+"""Datasets of the port: the synthetic azobenzene MD set and the
+synthetic token pipeline."""

@@ -1,26 +1,73 @@
-"""Step functions of the LM (prefill and serve) and the input specs of a
-shape cell: counterpart of ``repro/launch/steps.py``.
+"""Step functions of the LM (train, prefill and serve), the input specs
+of a shape cell and the abstract trees: counterpart of
+``repro/launch/steps.py``.
 
-``make_prefill_step`` and ``make_serve_step`` return plain callables over
-the port's ``forward`` and ``decode_step`` (the JAX launcher jits its
-own with shardings; the port runs them eagerly on one device).
-``input_specs`` gives the same shapes and dtypes as the JAX function's
-``ShapeDtypeStruct``s, as tensors on the ``meta`` device.
-
-``make_train_step`` belongs to ROADMAP.md §A item 1b (the LM's training
-path), and ``abstract_params``, ``abstract_cache`` and
-``abstract_opt_state`` to item 3 (the launcher's dry-run tooling).
+``make_train_step``, ``make_prefill_step`` and ``make_serve_step`` return
+plain callables over the port's ``lm_loss``, ``forward`` and
+``decode_step`` (the JAX launcher jits its own with shardings; the port
+runs them eagerly on one device). ``lm_value_and_grad`` is
+``jax.value_and_grad(lm_loss)``, with zeros for a leaf the loss does not
+reach, as JAX gives them. ``input_specs``, ``abstract_params``,
+``abstract_cache`` and ``abstract_opt_state`` give the shapes and dtypes
+of the JAX functions' ``ShapeDtypeStruct``s as tensors on the ``meta``
+device: no weight is drawn and no memory allocated, so the 110B config's
+tree takes milliseconds. The gradient sharding constraints of
+``make_train_step(grad_specs=...)`` are ROADMAP.md §A item 3.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+import dataclasses
+from typing import Callable, Dict, Tuple
 
 import torch
 
+from repro_torch import tree
 from repro_torch.models.lm import transformer as tfm
 from repro_torch.models.lm.config import LMConfig, ShapeCell
+from repro_torch.optim.adamw import AdamW, AdamWState
 
-__all__ = ["make_prefill_step", "make_serve_step", "input_specs"]
+__all__ = ["lm_value_and_grad", "make_train_step", "make_prefill_step",
+           "make_serve_step", "input_specs", "abstract_params",
+           "abstract_cache", "abstract_opt_state"]
+
+
+def lm_value_and_grad(params, cfg: LMConfig, batch: Dict[str, torch.Tensor]
+                      ) -> Tuple[torch.Tensor, dict]:
+    """(loss, grads) of ``lm_loss`` at ``params`` (a tree of float
+    tensors, left as they are): the gradient tree has the parameters'
+    structure, and a leaf with no path to the loss (the untied ``embed``
+    of an embedding frontend) gets zeros, as ``jax.value_and_grad``
+    gives, so the optimizer's weight decay and the error-feedback
+    residual see it as in JAX."""
+    flat = tree.items(params)
+    with torch.enable_grad():
+        leaves = [p.detach().requires_grad_() for _, p in flat]
+        loss = tfm.lm_loss(tree.unflatten(
+            params, {k: v for (k, _), v in zip(flat, leaves)}), cfg, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), tree.unflatten(params, {
+        k: torch.zeros_like(p) if g is None else g
+        for (k, p), g in zip(flat, grads)})
+
+
+def make_train_step(cfg: LMConfig, opt: AdamW,
+                    grad_specs=None) -> Callable:
+    """(params, opt_state, batch) -> (params, opt_state, loss): one
+    ``opt.update`` on :func:`lm_value_and_grad`'s gradients. The
+    reference's ``grad_specs`` (sharding constraints on the gradients)
+    belong to the mesh, ROADMAP.md §A item 3: any but None raises."""
+    if grad_specs is not None:
+        raise NotImplementedError(
+            "grad_specs constrains gradients to a device mesh's shardings: "
+            "mesh and sharding are ROADMAP.md §A item 3; the port trains "
+            "on one device")
+
+    def train_step(params, opt_state: AdamWState, batch):
+        loss, grads = lm_value_and_grad(params, cfg, batch)
+        new_params, new_state = opt.update(grads, opt_state, params)
+        return new_params, new_state, loss
+
+    return train_step
 
 
 def make_prefill_step(cfg: LMConfig) -> Callable:
@@ -63,3 +110,62 @@ def input_specs(cfg: LMConfig, cell: ShapeCell) -> Dict[str, torch.Tensor]:
     if cfg.frontend == "token":
         return {"tokens": spec((B, 1), torch.int32)}
     return {"embeds": spec((B, 1, cfg.d_model), cfg.dtype)}
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _float_params(cfg: LMConfig):
+    """``init_lm``'s tree for ``cfg`` (transformer pattern) as meta
+    tensors: the same keys, shapes and dtypes, nothing drawn."""
+    tfm.n_groups(cfg)                  # the supported patterns only
+    d, L, V, pdt = cfg.d_model, cfg.n_layers, cfg.vocab, cfg.param_dtype
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    attn = {"wq": _meta((L, d, nh * hd), pdt),
+            "wk": _meta((L, d, nkv * hd), pdt),
+            "wv": _meta((L, d, nkv * hd), pdt),
+            "wo": _meta((L, nh * hd, d), pdt)}
+    if cfg.qkv_bias:
+        attn.update(bq=_meta((L, nh * hd), pdt), bk=_meta((L, nkv * hd), pdt),
+                    bv=_meta((L, nkv * hd), pdt))
+    if cfg.qk_norm:
+        attn["tau"] = _meta((L,), torch.float32)
+    blocks = {"ln1": _meta((L, d), pdt), "ln2": _meta((L, d), pdt),
+              "attn": attn}
+    ff = cfg.d_ff
+    if cfg.mlp_kind == "swiglu":
+        blocks["mlp"] = {"wg": _meta((L, d, ff), pdt),
+                         "wu": _meta((L, d, ff), pdt),
+                         "wd": _meta((L, ff, d), pdt)}
+    elif cfg.mlp_kind == "squared_relu":
+        blocks["mlp"] = {"wi": _meta((L, d, ff), pdt),
+                         "wd": _meta((L, ff, d), pdt)}
+    p = {"embed": _meta((V, d), pdt), "final_norm": _meta((d,), pdt)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = _meta((d, V), pdt)
+    p["blocks"] = blocks
+    return p
+
+
+def abstract_params(cfg: LMConfig):
+    """The parameter tree of ``cfg`` as meta tensors; in a serve mode
+    quantized as ``quant.apply.quantize_params_tree`` quantizes it
+    (``(codes, scale)`` tuples)."""
+    if not cfg.quant_mode.startswith("serve"):
+        return _float_params(cfg)
+    from repro_torch.quant.apply import quantize_params_tree
+    return quantize_params_tree(
+        _float_params(dataclasses.replace(cfg, quant_mode="none")), cfg)
+
+
+def abstract_cache(cfg: LMConfig, cell: ShapeCell):
+    """``init_cache(cfg, cell.global_batch, cell.seq_len)`` as meta
+    tensors."""
+    return tfm.init_cache(cfg, cell.global_batch, cell.seq_len,
+                          device="meta")
+
+
+def abstract_opt_state(cfg: LMConfig, opt: AdamW) -> AdamWState:
+    """``opt.init`` of :func:`abstract_params`, as meta tensors."""
+    return opt.init(abstract_params(cfg))

@@ -3,9 +3,13 @@
 Counterpart of ``repro/models/lm/layers.py``. ``qlinear``'s serve modes
 are a dequantize-next-to-compute product with no activation
 quantization, ``(x @ w_q.to(x.dtype)) * w_scale``: the JAX package leaves
-it to XLA, and the port to ``torch.matmul``. ``qat_w4a8`` (the LM's
-training-time fake quantization) is ROADMAP.md §A item 1b and raises
-``NotImplementedError`` until then.
+it to XLA, and the port to ``torch.matmul``. ``qat_w4a8`` is the LM's
+training-time fake quantization, as the reference computes it: W4 per
+output channel (the abs-max over every other axis of ``w``), A8 per
+tensor (one abs-max scale over the whole activation), both through
+``core.quantizers.fake_quant_ste`` (straight-through rounding, the clip's
+gradient 0.5 at exactly +-qmax), then ``xq @ wq``. The LM takes no
+second derivative, so the estimators run with ``nested=False``.
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.quantizers import unpack_int4
+from repro_torch.core.quantizers import fake_quant_ste, unpack_int4
 
 __all__ = ["rmsnorm", "dense_init", "params_to_torch", "qlinear",
            "mlp_swiglu", "mlp_squared_relu", "apply_mlp", "rope_freqs",
@@ -55,9 +59,9 @@ def params_to_torch(tree, cfg, device: torch.device):
 
 def qlinear(x: torch.Tensor, w, mode: str = "none",
             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x: (..., K); w: (K, N) float, or ``(w_q, w_scale)`` in the serve
-    modes (int8 (K, N), or uint8 (K, N/2) nibbles in ``serve_w4a8``;
-    scale (1, N) f32)."""
+    """x: (..., K); w: (K, N) float (fake-quantized in ``qat_w4a8``), or
+    ``(w_q, w_scale)`` in the serve modes (int8 (K, N), or uint8 (K, N/2)
+    nibbles in ``serve_w4a8``; scale (1, N) f32)."""
     if mode == "none":
         y = x @ w.to(x.dtype)
     elif mode in ("serve_w8a8", "serve_w4a8"):
@@ -66,9 +70,9 @@ def qlinear(x: torch.Tensor, w, mode: str = "none",
             w_q = unpack_int4(w_q)
         y = (x @ w_q.to(x.dtype)) * w_scale.to(x.dtype)
     elif mode == "qat_w4a8":
-        raise NotImplementedError(
-            "qat_w4a8 is training-time fake quantization: the LM's QAT is "
-            "ROADMAP.md §A item 1b, not ported yet")
+        wq = fake_quant_ste(w, 4, channel_axis=w.ndim - 1)
+        xq = fake_quant_ste(x, 8)
+        y = xq @ wq.to(x.dtype)
     else:
         raise ValueError(f"unknown quant mode {mode!r}")
     if bias is not None:

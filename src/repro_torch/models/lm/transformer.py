@@ -7,10 +7,19 @@ The parameter tree has the JAX package's layout (nested dicts, per-layer
 leaves stacked on a leading depth axis, ``(q, scale)`` tuples once
 quantized), so a JAX tree crosses over through
 ``weights.lm_params_from_numpy``. Where the JAX package scans over
-layers, the port loops over them in Python. The ``zamba2`` and ``xlstm``
-patterns and MoE blocks are ROADMAP.md §A item 2 and raise
-``NotImplementedError``. ``lm_loss`` is its value only: its gradient is
-item 1b's.
+layers, the port loops over them in Python: ``forward`` splits each
+stacked leaf into its layers once (``torch.unbind``, one stacked
+gradient buffer in the backward), and with ``cfg.remat`` recomputes each
+layer in the backward (``torch.utils.checkpoint``, as the reference
+wraps its group function in ``jax.checkpoint``). ``lm_loss`` is
+differentiable: its value and the gradient of every leaf are held
+against ``jax.value_and_grad`` of the reference's (plain and
+``qat_w4a8``, ``tests/test_torch_lm_train.py``). A leaf with no path to
+the loss (the untied ``embed`` of an embedding frontend) gets no
+gradient from autograd, where JAX gives zeros:
+``launch.steps.lm_value_and_grad`` fills them in. The ``zamba2`` and
+``xlstm`` patterns and MoE blocks are ROADMAP.md §A item 2 and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -18,6 +27,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.lm import attention as attn
@@ -94,6 +104,21 @@ def init_cache(cfg: LMConfig, batch: int, seq: int,
                        for k, v in one.items()}}
 
 
+def _unstack(tree, n: int):
+    """The n per-layer trees of a tree of stacked leaves, each leaf split
+    once (``torch.unbind``). Under autograd the split's backward stacks
+    the layers' gradients into one buffer; indexing ``tree[i]`` per layer
+    would allocate and add a zero tensor of the whole stacked leaf n
+    times."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, tuple):
+        parts = [_unstack(v, n) for v in tree]
+        return [tuple(p[i] for p in parts) for i in range(n)]
+    return torch.unbind(tree)
+
+
 def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
@@ -117,24 +142,36 @@ def _norm(cfg: LMConfig):
     return norm
 
 
+def _block(g: Params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """One transformer layer (attention, then the MLP) on its own
+    parameters ``g``."""
+    norm = _norm(cfg)
+    x = x + attn.causal_attention(g["attn"], norm(x, g["ln1"]), cfg)
+    if cfg.mlp_kind != "none":
+        x = x + apply_mlp(g["mlp"], norm(x, g["ln2"]), cfg)
+    return x
+
+
 def forward(params: Params, cfg: LMConfig,
             tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None):
     """Full-sequence forward (the prefill). tokens: (B, S) integer ids,
     or embeds: (B, S, d) for non-token frontends. Returns (logits (B, S,
     V) float32, aux): ``aux`` is a 0-dim float32 zero, the MoE balance
-    loss that dense blocks do not have."""
+    loss that dense blocks do not have. With ``cfg.remat`` and grad mode
+    on, each layer's activations are recomputed in the backward."""
     _check_supported(cfg)
     if embeds is not None:
         x = embeds.to(cfg.dtype)
     else:
         x = params["embed"][tokens.long()].to(cfg.dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for g in _unstack(params["blocks"], n_groups(cfg)):
+        if remat:
+            x = checkpoint(_block, g, x, cfg, use_reentrant=False)
+        else:
+            x = _block(g, x, cfg)
     norm = _norm(cfg)
-    for i in range(n_groups(cfg)):
-        g = _layer(params["blocks"], i)
-        x = x + attn.causal_attention(g["attn"], norm(x, g["ln1"]), cfg)
-        if cfg.mlp_kind != "none":
-            x = x + apply_mlp(g["mlp"], norm(x, g["ln2"]), cfg)
     x = norm(x, params["final_norm"])
     logits = (x @ lm_head(params, cfg)).to(torch.float32)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -144,7 +181,8 @@ def lm_loss(params: Params, cfg: LMConfig,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Next-token cross entropy over ``batch["labels"]`` (B, S), under
     ``batch.get("mask")`` (ones when absent) and divided by
-    ``max(sum(mask), 1)``, plus 0.01 x the aux loss."""
+    ``max(sum(mask), 1)``, plus 0.01 x the aux loss. Differentiable in
+    every parameter that reaches it (the module's note on the rest)."""
     logits, aux = forward(params, cfg, tokens=batch.get("tokens"),
                           embeds=batch.get("embeds"))
     labels = batch["labels"].long()

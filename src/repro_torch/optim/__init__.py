@@ -1,1 +1,2 @@
-"""Optimizers of the port: AdamW and the cosine schedule."""
+"""Optimizers of the port: AdamW, the cosine schedule and the
+error-feedback gradient compression."""

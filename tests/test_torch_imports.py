@@ -48,6 +48,15 @@ def test_the_lm_prefill_modules_are_imported():
         assert configs._module(arch).__name__ in mods
 
 
+def test_the_lm_train_modules_are_imported():
+    """The import check above covers the training slice: the launcher,
+    the token pipeline, the gradient compression, the tree helper and
+    the tool behind chip_smoke.py phase 11's bounds."""
+    assert {"repro_torch.launch.train", "repro_torch.data.tokens",
+            "repro_torch.optim.compression", "repro_torch.tree",
+            "repro_torch.tools.lm_train_gap"} <= set(_modules())
+
+
 def test_no_source_file_imports_jax_or_repro():
     offenders = []
     for path in PKG.rglob("*.py"):

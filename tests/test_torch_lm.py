@@ -127,8 +127,10 @@ def test_qlinear_matches_jax(mode):
     got = layers.qlinear(_t(x), tw, mode, _t(b))
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
-    with pytest.raises(NotImplementedError, match="training"):
-        layers.qlinear(_t(x), _t(w), "qat_w4a8")
+    # the QAT branch is ported (its gradients: tests/test_torch_lm_train.py)
+    want = jlayers.qlinear(jnp.asarray(x), jnp.asarray(w), "qat_w4a8")
+    np.testing.assert_allclose(_np(layers.qlinear(_t(x), _t(w), "qat_w4a8")),
+                               np.asarray(want), rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -276,7 +278,7 @@ def test_decode_write_index_past_the_cache_raises():
     assert not cache["blocks"]["k_q"][:, :, :, :3].any()
 
 
-def test_int4_kv_cache_is_not_ported():
+def test_int4_kv_cache_decodes_without_kernels():
     """The int4 KV cache is served: ``serve.greedy_decode`` over a uint8
     cache of hd // 2 packed bytes per row runs with no
     ``NotImplementedError`` and no kernel launched, and its
