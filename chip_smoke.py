@@ -256,6 +256,39 @@
    step), finishes, and leaves step 39 valid with every digest verified
    and no ``step_*.tmp.*`` orphan. The phase within 180 s; every number
    beside the card's name and power limit.
+12. Serves the MoE, Mamba2-hybrid and xLSTM families
+   (``models/lm/{moe,ssm,xlstm}.py`` through ``transformer.py``; no
+   kernel of the port is in these blocks, as none of the reference's is)
+   at their published widths, bf16, weights drawn on the card with
+   ``init_lm``'s tree and scales, each model freed before the next. (a)
+   qwen3-moe-30b-a3b at full depth (48 layers, 128 experts top-8,
+   serve_w8a8, int8 KV), drawn and quantized one layer at a time (its
+   float32 experts would not fit): a 2 x 256 prefill (one routing group,
+   C = 40) counted with no kernel, the prompt decoded into the cache, 16
+   decode steps counted (K5' and K6 768 times each and nothing else,
+   every call held against its plain version as in phase 10), 16 more
+   timed; prints the bytes, peak memory, the prefill's ms, ms per decode
+   step, one profiled prefill and decode step (device busy, idle share,
+   the ten longest kernels), K6's device us and bound at its shape, and
+   the share of choices the capacity dropped in the prefill and in a
+   decode step. (b)
+   moonshot-v1-16b-a3b as (a), one layer deep (K5' and K6 16 times;
+   K6's new shape G 1 at hd 128 held and timed). (c) zamba2-1.2b at full
+   depth (19 groups of two Mamba2 blocks and the shared attention): as
+   (a) but its 16 counted steps decode the first prompt tokens (the
+   float32 check decodes the prompt), K5' and K6 304 times; then in
+   float32 with no kv_quant the first
+   64 prompt tokens decode teacher-forced within 5e-3 of the largest
+   |logit| of the float32 prefill, no kernel launched. (d) xlstm-1.3b at
+   full depth (6 groups of 7 mLSTM and 1 sLSTM blocks), quant none (the
+   reference cannot serve it quantized): as (c) with no kernel and no
+   profiled prefill, the float32 check of (c), and the sLSTM's share of
+   the prefill. (e) The
+   four smoke configs in float32 on the card and on the CPU: the prefill
+   and 8 decode steps within 1e-4 of the largest |logit| (a MoE gap past
+   it only with moved routing, printed, then held with the CPU's routing
+   pinned: ``tools/moe_routing``). The phase within 180 s; every number
+   beside the card's name and power limit.
 
 Phase 2 also holds the act-quant kernel bit for bit (float32 and bf16),
 its KV entry (the decode's whole int8 KV write) byte for byte over a
@@ -396,6 +429,29 @@ PREFILL_PHASE_S = 150.0
 LM_TRAIN_STEPS, LM_PLAIN_STEPS = 30, 10
 LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 256
 LM_TRAIN_PHASE_S = 180.0
+# phase 12: the MoE, Mamba2-hybrid and xLSTM families at their published
+# widths, in bf16 (serve_w8a8 with the int8 KV cache; xlstm with quant
+# none, since the reference cannot serve it quantized), each freed
+# before the next: FAM_ARCHS at full depth but FAM_DEPTH's; each prefills
+# FAM_BATCH x FAM_SEQ random tokens (one MoE routing group), decodes (MoE:
+# after its prompt, decoded into the cache) FAM_DECODE steps counted
+# (every K5' and K6 call held against its plain version) and FAM_DECODE
+# more timed; zamba2 and xlstm then decode their first FAM_FORCED tokens
+# teacher-forced in
+# float32 (no kv_quant) within FAM_F32_TOL of the largest |logit| of the
+# float32 prefill (tests/test_lm_correctness.py::TestDecodeConsistency's
+# 5e-3); the four smoke configs prefill FAM_SMOKE_SEQ tokens and decode
+# FAM_SMOKE_STEPS teacher-forced on the card and on the CPU in float32,
+# within FAM_CARD_TOL of the largest |logit| (phase 10 (d)'s 1e-4; MoE:
+# a larger gap only with moved routing, printed, then held with the
+# CPU's routing pinned: tools/moe_routing)
+FAM_ARCHS = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b", "zamba2-1.2b",
+             "xlstm-1.3b")
+FAM_DEPTH = {"moonshot-v1-16b-a3b": 1}
+FAM_BATCH, FAM_SEQ, FAM_DECODE, FAM_FORCED = 2, 256, 16, 64
+FAM_SMOKE_SEQ, FAM_SMOKE_STEPS = 32, 8
+FAM_CARD_TOL, FAM_F32_TOL = 1e-4, 5e-3
+FAM_PHASE_S = 180.0
 TRUNK_W8 = (64, 192)         # wq | wk | wm
 TRUNK_W4 = (64, 32)          # wa | wb
 OTHER_W8 = {"w_upd": (64, 64), "w_vnorm": (16, 64), "ro_w1": (80, 64),
@@ -3774,39 +3830,107 @@ def profile_prefill(torch, fn, wall_ms, what="prefill"):
         print(f"    {t_ms:9.4f} ms  x{count:<4d} {key[:90]}")
 
 
-def card_init_lm(torch, cfg, gen, dev):
-    """``init_lm``'s tree with its scales (embeddings N(0, 0.02^2),
-    projections N(0, 1) / sqrt(fan_in), norms 1, biases 0, tau =
-    attn_tau), drawn on the card from ``gen``: the published widths'
-    billions of draws would take minutes through numpy."""
-    d, L, hd = cfg.d_model, cfg.n_layers, cfg.hd
-    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+def card_top(torch, cfg, gen, dev):
+    """``init_lm``'s leaves outside the blocks (embeddings N(0, 0.02^2),
+    the untied head N(0, 1) / sqrt(d), the final norm 1), drawn on the
+    card from ``gen``."""
+    d = cfg.d_model
+    p = {"embed": torch.randn((cfg.vocab, d), generator=gen,
+                              device=dev).mul_(0.02),
+         "final_norm": torch.full((d,), 1.0, device=dev)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = torch.randn((d, cfg.vocab), generator=gen,
+                                   device=dev).mul_(d ** -0.5)
+    return p
+
+
+def card_blocks(torch, cfg, gen, dev):
+    """``init_lm``'s ``blocks`` (and zamba2's ``shared``) for any block
+    pattern, with its scales (projections N(0, 1) / sqrt(fan_in), norms
+    1, biases 0, tau = attn_tau; MoE experts / sqrt(d) and / sqrt(ff);
+    Mamba2 conv taps N(0, 0.01), A_log 0, D 1, dt_bias 0; the sLSTM's
+    recurrence / sqrt(dh)), drawn on the card from ``gen``."""
+    from repro_torch.models.lm.transformer import n_groups
+    d, G, hd = cfg.d_model, n_groups(cfg), cfg.hd
+    nh, nkv, ff = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
 
     def normal(*shape, scale):
         return torch.randn(shape, generator=gen, device=dev).mul_(scale)
 
-    def dense(fan_in, fan_out):
-        return normal(L, fan_in, fan_out, scale=fan_in ** -0.5)
+    def dense(lead, fan_in, fan_out):
+        return normal(*lead, fan_in, fan_out, scale=fan_in ** -0.5)
 
     def full(shape, value):
         return torch.full(shape, value, device=dev)
-    p = {"embed": normal(cfg.vocab, d, scale=0.02),
-         "final_norm": full((d,), 1.0)}
-    if not cfg.tie_embeddings:
-        p["lm_head"] = normal(d, cfg.vocab, scale=d ** -0.5)
-    a = {"wq": dense(d, nh * hd), "wk": dense(d, nkv * hd),
-         "wv": dense(d, nkv * hd), "wo": dense(nh * hd, d)}
-    if cfg.qkv_bias:
-        a.update(bq=full((L, nh * hd), 0.0), bk=full((L, nkv * hd), 0.0),
-                 bv=full((L, nkv * hd), 0.0))
-    if cfg.qk_norm:
-        a["tau"] = full((L,), cfg.attn_tau)
-    mlp = ({"wg": dense(d, cfg.d_ff), "wu": dense(d, cfg.d_ff),
-            "wd": dense(cfg.d_ff, d)} if cfg.mlp_kind == "swiglu"
-           else {"wi": dense(d, cfg.d_ff), "wd": dense(cfg.d_ff, d)})
-    p["blocks"] = {"ln1": full((L, d), 1.0), "ln2": full((L, d), 1.0),
-                   "attn": a, "mlp": mlp}
-    return p
+
+    def attn(lead):
+        a = {"wq": dense(lead, d, nh * hd), "wk": dense(lead, d, nkv * hd),
+             "wv": dense(lead, d, nkv * hd), "wo": dense(lead, nh * hd, d)}
+        if cfg.qkv_bias:
+            a.update(bq=full(lead + (nh * hd,), 0.0),
+                     bk=full(lead + (nkv * hd,), 0.0),
+                     bv=full(lead + (nkv * hd,), 0.0))
+        if cfg.qk_norm:
+            a["tau"] = full(lead, cfg.attn_tau)
+        return a
+
+    def mlp(lead):
+        if cfg.mlp_kind == "swiglu":
+            return {"wg": dense(lead, d, ff), "wu": dense(lead, d, ff),
+                    "wd": dense(lead, ff, d)}
+        return {"wi": dense(lead, d, ff), "wd": dense(lead, ff, d)}
+
+    if cfg.block_pattern == "transformer":
+        lead = (G,)
+        b = {"ln1": full((G, d), 1.0), "ln2": full((G, d), 1.0),
+             "attn": attn(lead)}
+        if cfg.moe:
+            E = cfg.n_experts
+            b["moe"] = {"router": dense(lead, d, E),
+                        "wg": normal(G, E, d, ff, scale=d ** -0.5),
+                        "wu": normal(G, E, d, ff, scale=d ** -0.5),
+                        "wd": normal(G, E, ff, d, scale=ff ** -0.5)}
+        elif cfg.mlp_kind != "none":
+            b["mlp"] = mlp(lead)
+        return {"blocks": b}
+    if cfg.block_pattern == "zamba2":
+        lead = (G, cfg.zamba_mamba_per_attn)
+        di, H = cfg.d_inner, cfg.n_ssm_heads
+        GN = cfg.ssm_groups * cfg.ssm_state
+        m = {"w_z": dense(lead, d, di), "w_x": dense(lead, d, di),
+             "w_B": dense(lead, d, GN), "w_C": dense(lead, d, GN),
+             "w_dt": dense(lead, d, H),
+             "conv_w": normal(*lead, 4, di, scale=0.1),
+             "conv_b": full(lead + (di,), 0.0),
+             "A_log": full(lead + (H,), 0.0), "D": full(lead + (H,), 1.0),
+             "dt_bias": full(lead + (H,), 0.0),
+             "norm_w": full(lead + (di,), 1.0),
+             "out_proj": dense(lead, di, d)}
+        return {"blocks": {"mamba": {"ln": full(lead + (d,), 1.0), "m": m}},
+                "shared": {"ln1": full((d,), 1.0), "ln2": full((d,), 1.0),
+                           "attn": attn(()), "mlp": mlp(())}}
+    lead = (G, cfg.xlstm_mlstm_per_slstm)
+    di, H = d * cfg.xlstm_proj_factor, cfg.n_heads
+    dk, dv, dh = di // H // 2, di // H, d // H
+    mb = {"w_gate": dense(lead, d, di), "w_up": dense(lead, d, di),
+          "wq": dense(lead, di, H * dk), "wk": dense(lead, di, H * dk),
+          "wv": dense(lead, di, H * dv), "wif": dense(lead, di, 2 * H),
+          "norm_w": full(lead + (di,), 1.0), "down": dense(lead, di, d)}
+    sb = {"w_in": dense((G,), d, 4 * d),
+          "r": normal(G, H, dh, 4 * dh, scale=dh ** -0.5),
+          "b": full((G, 4 * d), 0.0), "norm_w": full((G, d), 1.0),
+          "down": dense((G,), d, d)}
+    return {"blocks": {"mlstm": {"ln": full(lead + (d,), 1.0), "b": mb},
+                       "slstm": {"ln": full((G, d), 1.0), "b": sb}}}
+
+
+def card_init_lm(torch, cfg, gen, dev):
+    """``init_lm``'s tree with its scales (:func:`card_top`,
+    :func:`card_blocks`), any block pattern, drawn on the card from
+    ``gen``: the published widths' billions of draws would take minutes
+    through numpy."""
+    return dict(card_top(torch, cfg, gen, dev),
+                **card_blocks(torch, cfg, gen, dev))
 
 
 def _tree_spec(tree):
@@ -3815,11 +3939,22 @@ def _tree_spec(tree):
     return (tuple(tree.shape), tree.dtype)
 
 
+def k6_bound(q_shape, n_valid):
+    """(us, what bounds it) of one K6 call: q and the output (BH, G, D)
+    float32 once, the n_valid int8 K and V rows and their float32 scales
+    once; QK and PV at 2 operations a multiply-add, float32."""
+    rows, g, hd = q_shape
+    n_bytes = 2 * rows * g * hd * 4 + rows * n_valid * (2 * hd + 8)
+    ms, by = bound(n_bytes, rows * n_valid * (4 * g * hd + 2 * hd),
+                   FP32_OPS_PER_S)
+    return ms * 1e3, by
+
+
 def record_k6_call(torch, run):
     """K6's device us per call on the inputs of its last call in
     ``run()`` (CUDA events around calls queued behind a sleep kernel:
-    the profiler has lost events of so short a kernel), and that call's
-    shape."""
+    the profiler has lost events of so short a kernel), that call's
+    shape and its bound (:func:`k6_bound`: us, what bounds it)."""
     from repro_torch.kernels import ops
     saved, calls = ops.decode_attention_int8kv, []
 
@@ -3835,7 +3970,7 @@ def record_k6_call(torch, run):
     ms = queued_device_ms(
         torch, lambda: saved(q, k_q, k_s, v_q, v_s, n_valid, scale))
     return (ms * 1e3, f"BH={q.shape[0]} G={q.shape[1]} D={q.shape[2]} "
-                      f"n_valid={n_valid}")
+                      f"n_valid={n_valid}", k6_bound(tuple(q.shape), n_valid))
 
 
 def run_prefill_and_decode(torch, dev, lm):
@@ -3976,8 +4111,9 @@ def run_prefill_and_decode(torch, dev, lm):
             serve.decode(nlm, cache, x[:, i:i + 1], i)
         torch.cuda.synchronize()
         d_ms = (time.perf_counter() - t1) / n * 1e3
-        k6_us[arch], k6_shape = record_k6_call(torch, lambda: serve.decode(
-            nlm, cache, x[:, -1:], S + 2 * n - 1))
+        k6_us[arch], k6_shape, (k6_bound_us, k6_by) = record_k6_call(
+            torch, lambda: serve.decode(nlm, cache, x[:, -1:],
+                                        S + 2 * n - 1))
         print(f"  {arch} (1 of {configs.get_config(arch).n_layers} layers, "
               f"d_model {ncfg.d_model}, {ncfg.n_heads} heads over "
               f"{ncfg.n_kv_heads}, hd {ncfg.hd}, vocab {ncfg.vocab}, "
@@ -3986,7 +4122,8 @@ def run_prefill_and_decode(torch, dev, lm):
               f"{p_ms:.3f} ms (median of 3); decode {d_ms:.3f} ms/step "
               f"(host clock, {n} steps at positions {S + n}.."
               f"{S + 2 * n - 1}); K6 at {k6_shape}: device {k6_us[arch]:.3f} "
-              f"us per call (queued); teacher-forced prompt vs prefill {gap} "
+              f"us per call (queued), bound {k6_bound_us:.3f} us ({k6_by}); "
+              f"teacher-forced prompt vs prefill {gap} "
               f"(reported); launches {nonzero(counts)}; "
               f"{time.perf_counter() - t0:.1f} s [{ident}]")
         del nlm, params, cache, out, prompt, dec, x, batch
@@ -4334,6 +4471,280 @@ def run_lm_train(torch, dev):
     return {"launches": launches}
 
 
+# --- phase 12: the MoE, Mamba2-hybrid and xLSTM families -------------------
+
+def served_moe_lm(torch, cfg, gen, dev):
+    """A transformer-pattern (MoE) model in ``cfg.quant_mode``, its
+    blocks drawn on the card and quantized one layer at a time (the
+    scales are per matrix over axis -2, so a layer quantized alone gets
+    the codes of the stack): qwen3-moe's float32 experts would take ~116
+    GB at once. Returns (params, the float32 tree's bytes)."""
+    from repro_torch import tree
+    from repro_torch.quant.apply import quantize_params_tree, quantized_bytes
+    one = dataclasses.replace(cfg, n_layers=1)
+    params = card_top(torch, cfg, gen, dev)
+    f32_bytes = quantized_bytes(params)
+    stacks, like = {}, None
+    for i in range(cfg.n_layers):
+        layer = card_blocks(torch, one, gen, dev)
+        f32_bytes += quantized_bytes(layer)
+        layer = quantize_params_tree(layer, cfg)
+        for k, v in tree.items(layer):
+            if k not in stacks:
+                stacks[k] = torch.empty((cfg.n_layers,) + tuple(v.shape[1:]),
+                                        dtype=v.dtype, device=dev)
+            stacks[k][i] = v[0]
+        like = layer
+        del layer
+    params.update(tree.unflatten(like, stacks))
+    return params, f32_bytes
+
+
+def dropped_share(cfg, routing):
+    """The share of routing choices the capacity dropped."""
+    from repro_torch.tools.moe_routing import keep_of
+    kept = [keep_of(r, cfg) for r in routing]
+    return 1.0 - sum(int(k.sum()) for k in kept) / sum(k.numel()
+                                                       for k in kept)
+
+
+def serve_family(torch, dev, arch, cfg, params, f32_bytes, gen, held,
+                 ident):
+    """One family at its published width: the prefill (counted: no
+    kernel), for MoE the prompt decoded into the cache, FAM_DECODE steps
+    counted with every K5'/K6 call held (after the prompt; for zamba2 and
+    xlstm from the first token, whose float32 check decodes the prompt),
+    FAM_DECODE more timed; one profiled prefill (but xlstm's, ~48,000
+    events: its sLSTM share is taken by :func:`slstm_share`) and decode
+    step. Returns (the counted steps' launches, K6's device us or None,
+    the ServedLM, the tokens)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve, steps
+    from repro_torch.models.lm.moe import MOE_GROUP, capacity
+    from repro_torch.models.lm.transformer import init_cache, lm_head, n_groups
+    from repro_torch.quant.apply import quantized_bytes
+    from repro_torch.tools.moe_routing import routing_sites
+    B, S, n = FAM_BATCH, FAM_SEQ, FAM_DECODE
+    t0 = time.perf_counter()
+    lm = serve.ServedLM(cfg, params, lm_head(params, cfg), dev, f32_bytes,
+                        quantized_bytes(params))
+    x = torch.randint(0, cfg.vocab, (B, S + 2 * n), generator=gen,
+                      device=dev)
+    batch = {"tokens": x[:, :S]}
+    step = steps.make_prefill_step(cfg)
+    with routing_sites() as pre_routing:
+        out, counts = counted_run(lambda: step(params, batch))
+    only_lm_kernels(counts, 0, f"{cfg.name} prefill")
+    require(out.shape == (B, S, cfg.vocab) and bool(torch.isfinite(out).all()),
+            f"{cfg.name}: prefill logits not finite or of the wrong shape")
+    p_ms = host_ms(torch, lambda: step(params, batch), 3)
+    cache = init_cache(cfg, B, S + 2 * n, dev)
+    first = S if cfg.moe else 0
+    for i in range(first):
+        serve.decode(lm, cache, x[:, i:i + 1], i)
+    with checked_lm_kernels(torch, held), routing_sites() as dec_routing:
+        dec, counts = counted_run(lambda: torch.stack(
+            [serve.decode(lm, cache, x[:, i:i + 1], i)
+             for i in range(first, first + n)]))
+    kv_layers = 0 if cfg.block_pattern == "xlstm" else n_groups(cfg)
+    only_lm_kernels(counts, kv_layers * n if cfg.kv_quant else 0,
+                    f"{cfg.name} decode")
+    require(dec.shape == (n, B, cfg.vocab) and bool(torch.isfinite(dec).all()),
+            f"{cfg.name}: decode logits not finite")
+    last = first + 2 * n - 1
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(first + n, last + 1):
+        serve.decode(lm, cache, x[:, i:i + 1], i)
+    torch.cuda.synchronize()
+    d_ms = (time.perf_counter() - t1) / n * 1e3
+    if cfg.block_pattern != "xlstm":
+        profile_prefill(torch, lambda: step(params, batch), p_ms,
+                        f"{cfg.name} prefill")
+    profile_prefill(torch, lambda: serve.decode(lm, cache, x[:, last:last + 1],
+                                                last), d_ms,
+                    f"{cfg.name} decode step")
+    k6 = None
+    line = ""
+    if cfg.kv_quant:
+        us, shape, (b_us, b_by) = record_k6_call(torch, lambda: serve.decode(
+            lm, cache, x[:, last:last + 1], last))
+        k6 = us
+        line = (f"; K6 at {shape}: device {us:.3f} us per call (queued), "
+                f"bound {b_us:.3f} us ({b_by})")
+    if cfg.moe:
+        one_step = dec_routing[:n_groups(cfg)]
+        line += (f"; choices dropped by capacity: prefill "
+                 f"{dropped_share(cfg, pre_routing):.4f} (C = "
+                 f"{capacity(cfg, min(MOE_GROUP, B * S))}), one decode step "
+                 f"{dropped_share(cfg, one_step):.4f} (C = "
+                 f"{capacity(cfg, B)})")
+    full = configs.get_config(arch)
+    print(f"  {cfg.name} ({cfg.n_layers} of {full.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.quant_mode}, kv_quant={cfg.kv_quant}, bf16): "
+          f"weights fp32 {f32_bytes / 1e9:.3f} GB -> served "
+          f"{lm.served_bytes / 1e9:.3f} GB; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB; prefill "
+          f"B={B} S={S} {p_ms:.3f} ms (median of 3, host clock); decode "
+          f"{d_ms:.3f} ms/step (host clock, {n} steps at positions "
+          f"{first + n}..{last}); launches over {n} counted steps "
+          f"{nonzero(counts)}{line}; {time.perf_counter() - t0:.1f} s "
+          f"[{ident}]")
+    return counts, k6, lm, x
+
+
+def forced_f32(torch, lm, x):
+    """The float32 teacher-forced decode (no kv_quant, counted: no
+    kernel) of the first FAM_FORCED tokens against the float32 prefill:
+    the largest gap over the largest |logit|."""
+    from repro_torch.launch import steps
+    from repro_torch.models.lm.transformer import lm_head
+    cfg32 = dataclasses.replace(lm.cfg, dtype=torch.float32, kv_quant=False)
+    lm32 = dataclasses.replace(lm, cfg=cfg32, head=lm_head(lm.params, cfg32))
+    n = FAM_FORCED
+    want = steps.make_prefill_step(cfg32)(lm.params, {
+        "tokens": x[:, :FAM_SEQ]})[:, :n].transpose(0, 1)
+    got, counts = counted_run(lambda: forced_logits(torch, lm32, x[:, :n],
+                                                    False))
+    only_lm_kernels(counts, 0, f"{lm.cfg.name} float32 decode")
+    rel = float((got - want).abs().max() / want.abs().max())
+    print(f"  {lm.cfg.name} float32, no kv_quant: {n} teacher-forced decode "
+          f"steps vs the float32 prefill: max |diff| / max |logit| = {rel} "
+          f"(bound {FAM_F32_TOL})")
+    require(rel <= FAM_F32_TOL, f"{lm.cfg.name} float32 decode vs prefill: "
+                                f"{rel} > {FAM_F32_TOL}")
+
+
+def slstm_share(torch, lm, x):
+    """The prefill's host ms and the share of it the sLSTM blocks take
+    (each call ended by a synchronize)."""
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import xlstm
+    plain, spent = xlstm.slstm_forward, []
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = plain(*args)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+    step = steps.make_prefill_step(lm.cfg)
+    batch = {"tokens": x[:, :FAM_SEQ]}
+    step(lm.params, batch)
+    xlstm.slstm_forward = timed
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(lm.params, batch)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t
+    finally:
+        xlstm.slstm_forward = plain
+    return total * 1e3, sum(spent) / total
+
+
+def smoke_card_vs_cpu(torch, dev, arch):
+    """The arch's smoke config in float32 (serve_w8a8, float cache; xlstm
+    quant none) on the card and on the CPU: the prefill's logits and
+    FAM_SMOKE_STEPS teacher-forced decode steps, counted on the card (no
+    kernel), within FAM_CARD_TOL of the largest |logit|. A MoE gap past
+    it must come with moved routing, and then holds with the CPU's
+    routing pinned on the card."""
+    from repro_torch.launch import serve, steps
+    from repro_torch.models.lm.transformer import init_cache
+    from repro_torch.tools.moe_routing import moved_routing, routing_sites
+    cfg = serve.lm_config(arch, smoke=True, quant="none" if "xlstm" in arch
+                          else "serve_w8a8")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(2, FAM_SMOKE_SEQ)))
+    lms = {d: serve.build_lm(cfg, seed=0, device=d) for d in (dev, "cpu")}
+
+    def run(d, pin=None):
+        lm, t = lms[d], toks.to(d)
+        with routing_sites(pin) as routing:
+            pre = steps.make_prefill_step(cfg)(lm.params, {"tokens": t})
+            cache = init_cache(cfg, 2, FAM_SMOKE_STEPS, d)
+            dec = torch.stack([serve.decode(lm, cache, t[:, i:i + 1], i)
+                               for i in range(FAM_SMOKE_STEPS)])
+        return pre.cpu(), dec.cpu(), routing
+
+    def gap(a, b):
+        return max(float((x - y).abs().max() / y.abs().max())
+                   for x, y in zip(a, b))
+    cpu = run("cpu")
+    card, counts = counted_run(lambda: run(dev))
+    only_lm_kernels(counts, 0, f"{arch} smoke, card")
+    g = gap(card[:2], cpu[:2])
+    line = f"  {cfg.name}, float32: card vs CPU {g}"
+    if g > FAM_CARD_TOL and cfg.moe:
+        moved = moved_routing(cpu[2], card[2], cfg)
+        line += f"; routing moved (choices, kept) per routing {moved}"
+        require(sum(a + b for a, b in moved) > 0,
+                f"{arch}: card vs CPU {g} with no moved routing")
+        card = run(dev, pin=cpu[2])
+        g = gap(card[:2], cpu[:2])
+        line += f"; with the CPU's routing pinned {g}"
+    print(line + f" (bound {FAM_CARD_TOL}); no kernel launched")
+    require(g <= FAM_CARD_TOL, f"{arch} smoke: card and CPU disagree by {g}")
+
+
+def run_lm_families(torch, dev):
+    """Phase 12 (the module docstring): (a)-(d) the four family configs
+    at their published widths, (e) the smoke configs card against CPU."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models.lm.transformer import init_lm
+    from repro_torch.quant.apply import quantize_params_tree, quantized_bytes
+    t_phase, ident = time.perf_counter(), gpu_identity()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    launches, held, k6_us = {}, {}, {}
+    for arch in FAM_ARCHS:
+        small = configs.get_smoke_config(arch)
+        require(_tree_spec(card_init_lm(torch, small, gen, dev)) ==
+                _tree_spec(init_lm(small, device=dev)),
+                f"{arch}: the card's init differs from init_lm's tree")
+    for part, arch in zip("abcd", FAM_ARCHS):
+        xl = arch.startswith("xlstm")
+        cfg = serve.lm_config(arch, quant="none" if xl else "serve_w8a8",
+                              kv_quant=not xl)
+        if arch in FAM_DEPTH:
+            cfg = dataclasses.replace(cfg, n_layers=FAM_DEPTH[arch])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        print(f"  ({part}) {arch}")
+        if cfg.moe:
+            params, f32_bytes = served_moe_lm(torch, cfg, gen, dev)
+        else:
+            params = card_init_lm(torch, cfg, gen, dev)
+            f32_bytes = quantized_bytes(params)
+            if cfg.quant_mode != "none":
+                params = quantize_params_tree(params, cfg)
+        counts, k6, lm, x = serve_family(torch, dev, arch, cfg, params,
+                                         f32_bytes, gen, held, ident)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        if k6 is not None:
+            k6_us[arch] = k6
+        if not cfg.moe:
+            forced_f32(torch, lm, x)
+        if xl:
+            ms, share = slstm_share(torch, lm, x)
+            print(f"  {arch} bf16 prefill B={FAM_BATCH} S={FAM_SEQ}: "
+                  f"{ms:.3f} ms (host clock, each sLSTM block synchronized), "
+                  f"the sLSTM blocks {share:.3f} of it [{ident}]")
+        del lm, params, x
+        torch.cuda.empty_cache()
+    print("  (e) the smoke configs, card against CPU, float32")
+    for arch in FAM_ARCHS:
+        smoke_card_vs_cpu(torch, dev, arch)
+    took = time.perf_counter() - t_phase
+    print(f"  phase 12 took {took:.1f} s [{ident}]")
+    require(took <= FAM_PHASE_S, f"phase 12 took {took:.1f} s, over "
+                                 f"{FAM_PHASE_S:.0f}")
+    return {"launches": launches, "held": held, "k6_us": k6_us}
+
+
 def main() -> int:
     src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch").is_dir():
@@ -4429,15 +4840,23 @@ def main() -> int:
           f"{LM_TRAIN_STEPS} steps qat_w4a8 + ef8, {LM_PLAIN_STEPS} plain); "
           "one step card against CPU; kill and resume")
     lm_train = run_lm_train(torch, dev)
+    torch.cuda.empty_cache()
+    print("phase 12: the MoE, Mamba2-hybrid and xLSTM families at their "
+          f"published widths ({', '.join(FAM_ARCHS)}; moonshot one layer "
+          f"deep; B={FAM_BATCH}, S={FAM_SEQ}, bf16); the smoke configs card "
+          "against CPU")
+    families = run_lm_families(torch, dev)
     for row in rows:
         if row["name"] == "mddq_encode_kernel":
             row["training_shape"] = training["k4_training"]
         if row["name"] == "decode_attention_int8kv":
             row["lm_prefill_device_us"] = prefill["k6_us"]
+            row["lm_families_device_us"] = families["k6_us"]
         for key, h in (("so3_server_shapes", held),
                        ("cluster_shapes", cluster["held"]),
                        ("training_shapes", training["held"]),
-                       ("lm_prefill_shapes", prefill["held"])):
+                       ("lm_prefill_shapes", prefill["held"]),
+                       ("lm_families_shapes", families["held"])):
             if row["name"] in h:
                 err, shapes = h[row["name"]]
                 row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -4450,7 +4869,8 @@ def main() -> int:
                    "training": training["launches"].get(row["name"], 0),
                    "health_plane": health["launches"].get(row["name"], 0),
                    "lm_prefill": prefill["launches"].get(row["name"], 0),
-                   "lm_train": lm_train["launches"].get(row["name"], 0)}
+                   "lm_train": lm_train["launches"].get(row["name"], 0),
+                   "lm_families": families["launches"].get(row["name"], 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     require("jax" not in sys.modules and "repro" not in sys.modules,

@@ -17,9 +17,13 @@ allocates the KV cache and runs a greedy decode loop from token 0 at
 position 0, then prints the weight bytes (float32 -> served), the
 KV-cache bytes and the decode rate, as the JAX launcher does. The
 ``--smoke`` configs run in float32, the full ones in ``cfg.dtype``
-(bf16). ``--arch`` takes every id of ``configs.ARCH_IDS``; the
-non-token frontends (``musicgen-large``'s audio frames,
-``chameleon-34b``'s image patches) decode from zero embeddings.
+(bf16). ``--arch`` takes every id of ``configs.ARCH_IDS``, the MoE,
+Mamba2-hybrid and xLSTM families included (the latter only with
+``--quant none``: its gate projection ``b/wif`` stays float under the
+quantization policy, and a serve mode raises ``ValueError``, as the
+reference cannot serve it either); the non-token frontends
+(``musicgen-large``'s audio frames, ``chameleon-34b``'s image patches)
+decode from zero embeddings.
 
 SO(3) force-field inference through ``serving.QuantizedEngine``
 (``--workload so3``): one shot, a stream of molecules through

@@ -117,33 +117,69 @@ def _meta(shape, dtype) -> torch.Tensor:
 
 
 def _float_params(cfg: LMConfig):
-    """``init_lm``'s tree for ``cfg`` (transformer pattern) as meta
-    tensors: the same keys, shapes and dtypes, nothing drawn."""
-    tfm.n_groups(cfg)                  # the supported patterns only
-    d, L, V, pdt = cfg.d_model, cfg.n_layers, cfg.vocab, cfg.param_dtype
-    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    attn = {"wq": _meta((L, d, nh * hd), pdt),
-            "wk": _meta((L, d, nkv * hd), pdt),
-            "wv": _meta((L, d, nkv * hd), pdt),
-            "wo": _meta((L, nh * hd, d), pdt)}
-    if cfg.qkv_bias:
-        attn.update(bq=_meta((L, nh * hd), pdt), bk=_meta((L, nkv * hd), pdt),
-                    bv=_meta((L, nkv * hd), pdt))
-    if cfg.qk_norm:
-        attn["tau"] = _meta((L,), torch.float32)
-    blocks = {"ln1": _meta((L, d), pdt), "ln2": _meta((L, d), pdt),
-              "attn": attn}
-    ff = cfg.d_ff
-    if cfg.mlp_kind == "swiglu":
-        blocks["mlp"] = {"wg": _meta((L, d, ff), pdt),
-                         "wu": _meta((L, d, ff), pdt),
-                         "wd": _meta((L, ff, d), pdt)}
-    elif cfg.mlp_kind == "squared_relu":
-        blocks["mlp"] = {"wi": _meta((L, d, ff), pdt),
-                         "wd": _meta((L, ff, d), pdt)}
-    p = {"embed": _meta((V, d), pdt), "final_norm": _meta((d,), pdt)}
+    """``init_lm``'s tree for ``cfg`` as meta tensors: the same keys,
+    shapes and dtypes, nothing drawn."""
+    G = tfm.n_groups(cfg)
+    d, V, pdt, f32 = cfg.d_model, cfg.vocab, cfg.param_dtype, torch.float32
+    nh, nkv, hd, ff = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+
+    def w(*shape, dtype=pdt):
+        return _meta(shape, dtype)
+
+    def attn(*lead):
+        a = {"wq": w(*lead, d, nh * hd), "wk": w(*lead, d, nkv * hd),
+             "wv": w(*lead, d, nkv * hd), "wo": w(*lead, nh * hd, d)}
+        if cfg.qkv_bias:
+            a.update(bq=w(*lead, nh * hd), bk=w(*lead, nkv * hd),
+                     bv=w(*lead, nkv * hd))
+        if cfg.qk_norm:
+            a["tau"] = w(*lead, dtype=f32)
+        return a
+
+    def mlp(*lead):
+        if cfg.mlp_kind == "swiglu":
+            return {"wg": w(*lead, d, ff), "wu": w(*lead, d, ff),
+                    "wd": w(*lead, ff, d)}
+        return {"wi": w(*lead, d, ff), "wd": w(*lead, ff, d)}
+
+    p = {"embed": w(V, d), "final_norm": w(d)}
     if not cfg.tie_embeddings:
-        p["lm_head"] = _meta((d, V), pdt)
+        p["lm_head"] = w(d, V)
+    if cfg.block_pattern == "transformer":
+        blocks = {"ln1": w(G, d), "ln2": w(G, d), "attn": attn(G)}
+        if cfg.moe:
+            E = cfg.n_experts
+            blocks["moe"] = {"router": w(G, d, E, dtype=f32),
+                             "wg": w(G, E, d, ff), "wu": w(G, E, d, ff),
+                             "wd": w(G, E, ff, d)}
+        elif cfg.mlp_kind != "none":
+            blocks["mlp"] = mlp(G)
+    elif cfg.block_pattern == "zamba2":
+        lead = (G, cfg.zamba_mamba_per_attn)
+        di, H = cfg.d_inner, cfg.n_ssm_heads
+        GN = cfg.ssm_groups * cfg.ssm_state
+        m = {"w_z": w(*lead, d, di), "w_x": w(*lead, d, di),
+             "w_B": w(*lead, d, GN), "w_C": w(*lead, d, GN),
+             "w_dt": w(*lead, d, H), "conv_w": w(*lead, 4, di),
+             "conv_b": w(*lead, di), "A_log": w(*lead, H, dtype=f32),
+             "D": w(*lead, H, dtype=f32), "dt_bias": w(*lead, H, dtype=f32),
+             "norm_w": w(*lead, di), "out_proj": w(*lead, di, d)}
+        blocks = {"mamba": {"ln": w(*lead, d), "m": m}}
+        p["shared"] = {"ln1": w(d), "ln2": w(d), "attn": attn(),
+                       "mlp": mlp()}
+    else:
+        lead = (G, cfg.xlstm_mlstm_per_slstm)
+        di = d * cfg.xlstm_proj_factor
+        H = cfg.n_heads
+        dk, dv, dh = di // H // 2, di // H, d // H
+        mb = {"w_gate": w(*lead, d, di), "w_up": w(*lead, d, di),
+              "wq": w(*lead, di, H * dk), "wk": w(*lead, di, H * dk),
+              "wv": w(*lead, di, H * dv), "wif": w(*lead, di, 2 * H),
+              "norm_w": w(*lead, di), "down": w(*lead, di, d)}
+        sb = {"w_in": w(G, d, 4 * d), "r": w(G, H, dh, 4 * dh),
+              "b": w(G, 4 * d), "norm_w": w(G, d), "down": w(G, d, d)}
+        blocks = {"mlstm": {"ln": w(*lead, d), "b": mb},
+                  "slstm": {"ln": w(G, d), "b": sb}}
     p["blocks"] = blocks
     return p
 

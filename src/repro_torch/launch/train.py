@@ -1,5 +1,5 @@
-"""Training launcher of the dense LMs: counterpart of
-``repro/launch/train.py``, on one device.
+"""Training launcher of the LMs (every arch of ``configs.ARCH_IDS``):
+counterpart of ``repro/launch/train.py``, on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --steps 50 --batch 8 --seq 256 --smoke --device cpu

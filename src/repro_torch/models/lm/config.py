@@ -1,10 +1,12 @@
 """LM architecture configuration: counterpart of
 ``repro/models/lm/config.py``'s ``LMConfig``, ``ShapeCell`` and
 ``SHAPES``, with the same fields, defaults and values. ``dtype``
-(activations) and ``param_dtype`` are ``torch.dtype``s. The sharding,
-remat and SSM chunking fields are kept so configs copy over unchanged;
-the port reads ``attn_chunk_q`` (the prefill's query block) and not
-those.
+(activations) and ``param_dtype`` are ``torch.dtype``s. The sharding
+field (``act_sharding``) and ``attn_chunk_kv`` are kept so configs copy
+over unchanged, and the port does not read them; it reads
+``attn_chunk_q`` (the prefill's query block), ``remat`` (each group
+recomputed in the backward) and ``ssm_chunk`` (the chunked linear-RNN
+scan's chunk, for the Mamba2 and mLSTM blocks).
 """
 from __future__ import annotations
 

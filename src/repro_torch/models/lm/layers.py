@@ -20,9 +20,13 @@ import torch
 
 from repro_torch.core.quantizers import fake_quant_ste, unpack_int4
 
-__all__ = ["rmsnorm", "dense_init", "params_to_torch", "qlinear",
-           "mlp_swiglu", "mlp_squared_relu", "apply_mlp", "rope_freqs",
+__all__ = ["rmsnorm", "lead_shape", "dense_init", "normal_init",
+           "params_to_torch", "qlinear", "silu", "softplus", "mlp_swiglu",
+           "mlp_squared_relu", "mlp_arrays", "apply_mlp", "rope_freqs",
            "apply_rope"]
+
+# leaves the JAX package creates in float32 whatever ``param_dtype`` is
+F32_LEAVES = ("tau", "router", "A_log", "D", "dt_bias")
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
@@ -34,24 +38,43 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
     return (x * w.to(x.dtype)).to(dt)
 
 
+def lead_shape(depth) -> tuple:
+    """The leading stack axes a ``depth`` argument names: none for None,
+    ``(depth,)`` for an int, the tuple itself otherwise."""
+    if depth is None:
+        return ()
+    return (depth,) if isinstance(depth, int) else tuple(depth)
+
+
+def normal_init(rng: np.random.Generator, shape, fan_in: int,
+                depth=None) -> np.ndarray:
+    """N(0, 1) / sqrt(fan_in) float32 arrays of ``shape``, drawn with
+    numpy, stacked on the leading ``depth`` axes (an int or a tuple) with
+    one draw of ``shape`` per entry, in order."""
+    lead = lead_shape(depth)
+    w = np.empty(lead + tuple(shape), np.float32)
+    for m in w.reshape((-1,) + tuple(shape)):
+        rng.standard_normal(shape, dtype=np.float32, out=m)
+    w /= np.sqrt(np.float32(fan_in))
+    return w
+
+
 def dense_init(rng: np.random.Generator, fan_in: int, fan_out: int,
-               depth: Optional[int] = None) -> np.ndarray:
+               depth=None) -> np.ndarray:
     """N(0, 1) / sqrt(fan_in) float32 weights, drawn with numpy (the JAX
     ``dense_init``'s scale, not its bits): ``(fan_in, fan_out)``, or
-    stacked ``(depth, fan_in, fan_out)`` with one draw per matrix, in
-    order."""
-    w = np.empty((depth or 1, fan_in, fan_out), np.float32)
-    for i in range(w.shape[0]):
-        rng.standard_normal((fan_in, fan_out), dtype=np.float32, out=w[i])
-    w /= np.sqrt(np.float32(fan_in))
-    return w if depth else w[0]
+    stacked on the leading ``depth`` axes (an int or a tuple) with one
+    draw per matrix, in order."""
+    return normal_init(rng, (fan_in, fan_out), fan_in, depth)
 
 
 def params_to_torch(tree, cfg, device: torch.device):
     """A nested dict of numpy arrays -> tensors on ``device``, every leaf
-    in ``cfg.param_dtype`` but ``tau``, which stays float32 as in JAX."""
+    in ``cfg.param_dtype`` but those of ``F32_LEAVES`` (``tau``, the MoE
+    router, the SSM's ``A_log``, ``D`` and ``dt_bias``), which stay
+    float32 as in JAX."""
     if isinstance(tree, dict):
-        return {k: (torch.from_numpy(v).to(device) if k == "tau"
+        return {k: (torch.from_numpy(v).to(device) if k in F32_LEAVES
                     else params_to_torch(v, cfg, device))
                 for k, v in tree.items()}
     return torch.from_numpy(tree).to(device=device, dtype=cfg.param_dtype)
@@ -80,19 +103,39 @@ def qlinear(x: torch.Tensor, w, mode: str = "none",
     return y
 
 
-def _silu(x: torch.Tensor) -> torch.Tensor:
+def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)          # jax.nn.silu's formula
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``'s formula, ``logaddexp(x, 0)`` (no threshold)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
 
 
 def mlp_swiglu(params, x, mode="none"):
     g = qlinear(x, params["wg"], mode)
     u = qlinear(x, params["wu"], mode)
-    return qlinear(_silu(g) * u, params["wd"], mode)
+    return qlinear(silu(g) * u, params["wd"], mode)
 
 
 def mlp_squared_relu(params, x, mode="none"):
     h = torch.relu(qlinear(x, params["wi"], mode))
     return qlinear(h * h, params["wd"], mode)
+
+
+def mlp_arrays(cfg, rng: np.random.Generator, depth=None):
+    """The MLP's weights as float32 numpy arrays (the JAX ``init_mlp``'s
+    shapes and scales), stacked on the leading ``depth`` axes."""
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.mlp_kind == "swiglu":
+        return {"wg": dense_init(rng, d, ff, depth),
+                "wu": dense_init(rng, d, ff, depth),
+                "wd": dense_init(rng, ff, d, depth)}
+    if cfg.mlp_kind == "squared_relu":
+        return {"wi": dense_init(rng, d, ff, depth),
+                "wd": dense_init(rng, ff, d, depth)}
+    raise ValueError(cfg.mlp_kind)
 
 
 def apply_mlp(params, x, cfg, mode=None):

@@ -1,25 +1,33 @@
 """LM assembly: parameters, the prefill forward and loss, the cache and
-the decode step of the transformer block pattern.
+the decode step of the three block patterns.
 
 Counterpart of ``n_groups``, ``init_lm``, ``forward``, ``lm_loss``,
 ``init_cache`` and ``decode_step`` of ``repro/models/lm/transformer.py``.
-The parameter tree has the JAX package's layout (nested dicts, per-layer
+The parameter tree has the JAX package's layout (nested dicts, per-group
 leaves stacked on a leading depth axis, ``(q, scale)`` tuples once
 quantized), so a JAX tree crosses over through
-``weights.lm_params_from_numpy``. Where the JAX package scans over
-layers, the port loops over them in Python: ``forward`` splits each
-stacked leaf into its layers once (``torch.unbind``, one stacked
-gradient buffer in the backward), and with ``cfg.remat`` recomputes each
-layer in the backward (``torch.utils.checkpoint``, as the reference
-wraps its group function in ``jax.checkpoint``). ``lm_loss`` is
-differentiable: its value and the gradient of every leaf are held
-against ``jax.value_and_grad`` of the reference's (plain and
-``qat_w4a8``, ``tests/test_torch_lm_train.py``). A leaf with no path to
-the loss (the untied ``embed`` of an embedding frontend) gets no
-gradient from autograd, where JAX gives zeros:
-``launch.steps.lm_value_and_grad`` fills them in. The ``zamba2`` and
-``xlstm`` patterns and MoE blocks are ROADMAP.md §A item 2 and raise
-``NotImplementedError``.
+``weights.lm_params_from_numpy``. Block patterns, as in the reference:
+
+- ``transformer``: ``n_layers`` groups of [attention + MLP or MoE]
+  (``blocks["moe"]`` in place of ``mlp``);
+- ``zamba2``: ``n_layers // zamba_mamba_per_attn`` groups of
+  [``zamba_mamba_per_attn`` Mamba2 blocks (``blocks["mamba"]``, stacked
+  over (groups, per group)) + ONE shared attention + MLP block
+  (``params["shared"]``, not stacked), reused at every group's end];
+- ``xlstm``: ``n_layers // (xlstm_mlstm_per_slstm + 1)`` groups of
+  [``xlstm_mlstm_per_slstm`` mLSTM blocks + one sLSTM block].
+
+Where the JAX package scans over groups, the port loops over them in
+Python: ``forward`` splits each stacked leaf into its groups once
+(``torch.unbind``, one stacked gradient buffer in the backward), and with
+``cfg.remat`` recomputes each group in the backward
+(``torch.utils.checkpoint``, as the reference wraps its group function
+in ``jax.checkpoint``); the shared block's gradient sums over its uses.
+``lm_loss`` is differentiable: its value and the gradient of every leaf
+are held against ``jax.value_and_grad`` of the reference's. A leaf with
+no path to the loss (the untied ``embed`` of an embedding frontend) gets
+no gradient from autograd, where JAX gives zeros:
+``launch.steps.lm_value_and_grad`` fills them in.
 """
 from __future__ import annotations
 
@@ -31,8 +39,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.lm import attention as attn
+from repro_torch.models.lm import moe as moe_lib
+from repro_torch.models.lm import ssm as ssm_lib
+from repro_torch.models.lm import xlstm as xlstm_lib
 from repro_torch.models.lm.config import LMConfig
-from repro_torch.models.lm.layers import (apply_mlp, dense_init,
+from repro_torch.models.lm.layers import (apply_mlp, dense_init, mlp_arrays,
                                           params_to_torch, rmsnorm)
 
 __all__ = ["n_groups", "init_lm", "forward", "lm_loss", "init_cache",
@@ -41,34 +52,32 @@ __all__ = ["n_groups", "init_lm", "forward", "lm_loss", "init_cache",
 Params = Dict[str, Any]
 
 
-def _check_supported(cfg: LMConfig) -> None:
-    if cfg.block_pattern != "transformer":
-        raise NotImplementedError(
-            f"block pattern {cfg.block_pattern!r}: only the transformer "
-            "pattern is ported (ROADMAP.md §A item 2)")
-    if cfg.moe:
-        raise NotImplementedError("MoE blocks are not ported "
-                                  "(ROADMAP.md §A item 2)")
-
-
 def n_groups(cfg: LMConfig) -> int:
-    """Entries on the parameter tree's depth axis: one per layer."""
-    _check_supported(cfg)
-    return cfg.n_layers
+    """Entries on the parameter tree's depth axis: one per layer
+    (transformer), per Mamba2 group (zamba2) or per mLSTM/sLSTM group
+    (xlstm)."""
+    if cfg.block_pattern == "transformer":
+        return cfg.n_layers
+    if cfg.block_pattern == "zamba2":
+        return cfg.n_layers // cfg.zamba_mamba_per_attn
+    if cfg.block_pattern == "xlstm":
+        return cfg.n_layers // (cfg.xlstm_mlstm_per_slstm + 1)
+    raise ValueError(cfg.block_pattern)
 
 
 def init_lm(cfg: LMConfig, seed: int = 0,
             device: DeviceLike = None) -> Params:
-    """Random parameters with the shapes and scales of the JAX
-    ``init_lm`` (transformer pattern), drawn with numpy from ``seed``
-    (not JAX's bits): embeddings N(0, 0.02^2), projections
-    N(0, 1) / sqrt(fan_in), norms 1, QKV biases 0, ``tau`` = attn_tau,
-    all ``cfg.param_dtype`` but ``tau`` (float32).
+    """Random parameters with the tree, shapes and scales of the JAX
+    ``init_lm``, drawn with numpy from ``seed`` (not JAX's bits):
+    embeddings N(0, 0.02^2), projections N(0, 1) / sqrt(fan_in), norms
+    1, QKV biases 0, ``tau`` = attn_tau, the families' own leaves as
+    their modules draw them; all ``cfg.param_dtype`` but the float32
+    leaves of ``layers.F32_LEAVES``.
     """
-    _check_supported(cfg)
+    G = n_groups(cfg)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    d, L = cfg.d_model, cfg.n_layers
+    d = cfg.d_model
 
     def ones(*shape):
         return np.ones(shape, np.float32)
@@ -79,35 +88,70 @@ def init_lm(cfg: LMConfig, seed: int = 0,
                  "final_norm": ones(d)}
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(rng, d, cfg.vocab)
-    blocks = {"ln1": ones(L, d), "ln2": ones(L, d),
-              "attn": attn.attention_arrays(cfg, rng, L)}
-    if cfg.mlp_kind == "swiglu":
-        blocks["mlp"] = {"wg": dense_init(rng, d, cfg.d_ff, L),
-                         "wu": dense_init(rng, d, cfg.d_ff, L),
-                         "wd": dense_init(rng, cfg.d_ff, d, L)}
-    elif cfg.mlp_kind == "squared_relu":
-        blocks["mlp"] = {"wi": dense_init(rng, d, cfg.d_ff, L),
-                         "wd": dense_init(rng, cfg.d_ff, d, L)}
+    if cfg.block_pattern == "transformer":
+        blocks = {"ln1": ones(G, d), "ln2": ones(G, d),
+                  "attn": attn.attention_arrays(cfg, rng, G)}
+        if cfg.moe:
+            blocks["moe"] = moe_lib.moe_arrays(cfg, rng, G)
+        elif cfg.mlp_kind != "none":
+            blocks["mlp"] = mlp_arrays(cfg, rng, G)
+    elif cfg.block_pattern == "zamba2":
+        per = cfg.zamba_mamba_per_attn
+        blocks = {"mamba": {"ln": ones(G, per, d),
+                            "m": ssm_lib.mamba2_arrays(cfg, rng, (G, per))}}
+        p["shared"] = {"ln1": ones(d), "ln2": ones(d),
+                       "attn": attn.attention_arrays(cfg, rng),
+                       "mlp": mlp_arrays(cfg, rng)}
+    else:
+        M = cfg.xlstm_mlstm_per_slstm
+        blocks = {"mlstm": {"ln": ones(G, M, d),
+                            "b": xlstm_lib.mlstm_arrays(cfg, rng, (G, M))},
+                  "slstm": {"ln": ones(G, d),
+                            "b": xlstm_lib.slstm_arrays(cfg, rng, G)}}
     p["blocks"] = blocks
     return params_to_torch(p, cfg, dev)
 
 
+def _rep(tree, *lead: int):
+    """Each leaf of ``tree`` repeated over new leading axes ``lead``, as
+    its own memory (the reference broadcasts; the port's decode writes
+    each entry in place)."""
+    if isinstance(tree, dict):
+        return {k: _rep(v, *lead) for k, v in tree.items()}
+    return tree.reshape((1,) * len(lead) + tree.shape).repeat(
+        *lead, *([1] * tree.ndim))
+
+
 def init_cache(cfg: LMConfig, batch: int, seq: int,
                device: DeviceLike = None) -> Params:
-    """Zeroed KV cache for ``seq`` positions, leaves stacked over layers:
-    ``{"blocks": {"k_q", "v_q", "k_s", "v_s"}}`` (int8 cache) or
-    ``{"blocks": {"k", "v"}}`` in ``cfg.dtype``."""
-    _check_supported(cfg)
+    """The decode state for ``seq`` positions, leaves stacked over groups:
+    transformer ``{"blocks": kv}``; zamba2 ``{"blocks": {"mamba": {conv,
+    ssm} (G, per, ...), "attn": kv}}``; xlstm ``{"blocks": {"mlstm":
+    {state, norm} (G, M, ...), "slstm": {h, c, n, m}}}``. ``kv`` is
+    ``{"k_q", "v_q", "k_s", "v_s"}`` (quantized cache) or ``{"k", "v"}``
+    in ``cfg.dtype``; the conv cache is ``cfg.dtype``, the SSM and
+    mLSTM state float32, the sLSTM's m -1e30."""
+    G = n_groups(cfg)
     dev = resolve_device(device)
-    one = attn.init_kv_cache(cfg, batch, seq, cfg.dtype, dev)
-    return {"blocks": {k: v[None].repeat(cfg.n_layers, *([1] * v.ndim))
-                       for k, v in one.items()}}
+    dt = cfg.dtype
+    if cfg.block_pattern == "transformer":
+        return {"blocks": _rep(attn.init_kv_cache(cfg, batch, seq, dt, dev),
+                               G)}
+    if cfg.block_pattern == "zamba2":
+        return {"blocks": {
+            "mamba": _rep(ssm_lib.init_mamba2_cache(cfg, batch, dt, dev), G,
+                          cfg.zamba_mamba_per_attn),
+            "attn": _rep(attn.init_kv_cache(cfg, batch, seq, dt, dev), G)}}
+    return {"blocks": {
+        "mlstm": _rep(xlstm_lib.init_mlstm_cache(cfg, batch, dt, dev), G,
+                      cfg.xlstm_mlstm_per_slstm),
+        "slstm": _rep(xlstm_lib.init_slstm_cache(cfg, batch, dt, dev), G)}}
 
 
 def _unstack(tree, n: int):
-    """The n per-layer trees of a tree of stacked leaves, each leaf split
+    """The n per-group trees of a tree of stacked leaves, each leaf split
     once (``torch.unbind``). Under autograd the split's backward stacks
-    the layers' gradients into one buffer; indexing ``tree[i]`` per layer
+    the groups' gradients into one buffer; indexing ``tree[i]`` per group
     would allocate and add a zero tensor of the whole stacked leaf n
     times."""
     if isinstance(tree, dict):
@@ -142,14 +186,36 @@ def _norm(cfg: LMConfig):
     return norm
 
 
-def _block(g: Params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    """One transformer layer (attention, then the MLP) on its own
-    parameters ``g``."""
+def _group_fn(cfg: LMConfig, shared: Optional[Params]):
+    """f(g, x) -> (x, the MoE balance loss or None) for one group on its
+    own parameters ``g`` (``shared``: zamba2's shared block)."""
     norm = _norm(cfg)
-    x = x + attn.causal_attention(g["attn"], norm(x, g["ln1"]), cfg)
-    if cfg.mlp_kind != "none":
-        x = x + apply_mlp(g["mlp"], norm(x, g["ln2"]), cfg)
-    return x
+
+    def transformer_group(g, x):
+        x = x + attn.causal_attention(g["attn"], norm(x, g["ln1"]), cfg)
+        if cfg.moe:
+            h, aux = moe_lib.moe_forward(g["moe"], norm(x, g["ln2"]), cfg)
+            return x + h, aux
+        if cfg.mlp_kind != "none":
+            x = x + apply_mlp(g["mlp"], norm(x, g["ln2"]), cfg)
+        return x, None
+
+    def zamba_group(g, x):
+        for mg in _unstack(g["mamba"], cfg.zamba_mamba_per_attn):
+            x = x + ssm_lib.mamba2_forward(mg["m"], norm(x, mg["ln"]), cfg)
+        s = shared
+        x = x + attn.causal_attention(s["attn"], norm(x, s["ln1"]), cfg)
+        return x + apply_mlp(s["mlp"], norm(x, s["ln2"]), cfg), None
+
+    def xlstm_group(g, x):
+        for mg in _unstack(g["mlstm"], cfg.xlstm_mlstm_per_slstm):
+            x = x + xlstm_lib.mlstm_forward(mg["b"], norm(x, mg["ln"]), cfg)
+        sg = g["slstm"]
+        return x + xlstm_lib.slstm_forward(sg["b"], norm(x, sg["ln"]),
+                                           cfg), None
+
+    return {"transformer": transformer_group, "zamba2": zamba_group,
+            "xlstm": xlstm_group}[cfg.block_pattern]
 
 
 def forward(params: Params, cfg: LMConfig,
@@ -157,24 +223,28 @@ def forward(params: Params, cfg: LMConfig,
             embeds: Optional[torch.Tensor] = None):
     """Full-sequence forward (the prefill). tokens: (B, S) integer ids,
     or embeds: (B, S, d) for non-token frontends. Returns (logits (B, S,
-    V) float32, aux): ``aux`` is a 0-dim float32 zero, the MoE balance
-    loss that dense blocks do not have. With ``cfg.remat`` and grad mode
-    on, each layer's activations are recomputed in the backward."""
-    _check_supported(cfg)
+    V) float32, aux): ``aux`` is the MoE balance loss summed over the
+    groups and divided by their number, a 0-dim float32 (zero without
+    MoE blocks). With ``cfg.remat`` and grad mode on, each group's
+    activations are recomputed in the backward."""
+    G = n_groups(cfg)
     if embeds is not None:
         x = embeds.to(cfg.dtype)
     else:
         x = params["embed"][tokens.long()].to(cfg.dtype)
+    group = _group_fn(cfg, params.get("shared"))
     remat = cfg.remat and torch.is_grad_enabled()
-    for g in _unstack(params["blocks"], n_groups(cfg)):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in _unstack(params["blocks"], G):
         if remat:
-            x = checkpoint(_block, g, x, cfg, use_reentrant=False)
+            x, a = checkpoint(group, g, x, use_reentrant=False)
         else:
-            x = _block(g, x, cfg)
-    norm = _norm(cfg)
-    x = norm(x, params["final_norm"])
+            x, a = group(g, x)
+        if a is not None:
+            aux = aux + a
+    x = _norm(cfg)(x, params["final_norm"])
     logits = (x @ lm_head(params, cfg)).to(torch.float32)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux / G
 
 
 def lm_loss(params: Params, cfg: LMConfig,
@@ -203,23 +273,47 @@ def decode_step(params: Params, cfg: LMConfig, cache: Params,
     """One decode step. tokens: (B, 1) integer ids, or (B, 1, d)
     embeddings for non-token frontends; ``cur_index``: the position this
     token takes, a Python int in ``[0, cache_len)`` (``ValueError``
-    otherwise). Updates ``cache`` in place; returns (logits (B, V) f32,
-    cache). ``head`` is :func:`lm_head`'s result, made here when omitted.
+    otherwise, where a KV cache is written). Updates ``cache`` in place;
+    returns (logits (B, V) f32, cache). ``head`` is :func:`lm_head`'s
+    result, made here when omitted. A MoE block routes the step's B
+    tokens as one group (see ``moe.py``).
     """
-    _check_supported(cfg)
     if tokens.ndim == 3:
         x = tokens.to(cfg.dtype)
     else:
         x = params["embed"][tokens.long()].to(cfg.dtype)
     norm = _norm(cfg)
+    shared = params.get("shared")
     for i in range(n_groups(cfg)):
         g = _layer(params["blocks"], i)
         c = _layer(cache["blocks"], i)
-        h, _ = attn.decode_attention(g["attn"], norm(x, g["ln1"]), cfg, c,
-                                     cur_index)
-        x = x + h
-        if cfg.mlp_kind != "none":
-            x = x + apply_mlp(g["mlp"], norm(x, g["ln2"]), cfg)
+        if cfg.block_pattern == "transformer":
+            h, _ = attn.decode_attention(g["attn"], norm(x, g["ln1"]), cfg,
+                                         c, cur_index)
+            x = x + h
+            if cfg.moe:
+                x = x + moe_lib.moe_forward(g["moe"], norm(x, g["ln2"]),
+                                            cfg)[0]
+            elif cfg.mlp_kind != "none":
+                x = x + apply_mlp(g["mlp"], norm(x, g["ln2"]), cfg)
+        elif cfg.block_pattern == "zamba2":
+            for j in range(cfg.zamba_mamba_per_attn):
+                mg = _layer(g["mamba"], j)
+                x = x + ssm_lib.mamba2_step(mg["m"], norm(x, mg["ln"]), cfg,
+                                            _layer(c["mamba"], j))[0]
+            h, _ = attn.decode_attention(shared["attn"],
+                                         norm(x, shared["ln1"]), cfg,
+                                         c["attn"], cur_index)
+            x = x + h
+            x = x + apply_mlp(shared["mlp"], norm(x, shared["ln2"]), cfg)
+        else:
+            for j in range(cfg.xlstm_mlstm_per_slstm):
+                mg = _layer(g["mlstm"], j)
+                x = x + xlstm_lib.mlstm_step(mg["b"], norm(x, mg["ln"]), cfg,
+                                             _layer(c["mlstm"], j))[0]
+            sg = g["slstm"]
+            x = x + xlstm_lib.slstm_step(sg["b"], norm(x, sg["ln"]), cfg,
+                                         c["slstm"])[0]
     x = norm(x, params["final_norm"])
     if head is None:
         head = lm_head(params, cfg)

@@ -57,6 +57,18 @@ def test_the_lm_train_modules_are_imported():
             "repro_torch.tools.lm_train_gap"} <= set(_modules())
 
 
+def test_the_lm_family_modules_are_imported():
+    """The import check above covers the MoE, Mamba2-hybrid and xLSTM
+    slice: the three block modules, the four configs and the routing
+    tool behind chip_smoke.py phase 12's card-against-CPU gate."""
+    assert {"repro_torch.models.lm.moe", "repro_torch.models.lm.ssm",
+            "repro_torch.models.lm.xlstm", "repro_torch.tools.moe_routing",
+            "repro_torch.configs.moonshot_v1_16b_a3b",
+            "repro_torch.configs.qwen3_moe_30b_a3b",
+            "repro_torch.configs.zamba2_1p2b",
+            "repro_torch.configs.xlstm_1p3b"} <= set(_modules())
+
+
 def test_no_source_file_imports_jax_or_repro():
     offenders = []
     for path in PKG.rglob("*.py"):

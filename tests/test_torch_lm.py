@@ -18,6 +18,7 @@ jitted KV write), so they differ by up to 3.9% here.
 """
 import dataclasses
 import functools
+import hashlib
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +31,7 @@ from repro.models.lm import layers as jlayers
 from repro.models.lm import transformer as jtfm
 from repro.models.lm.config import LMConfig as JLMConfig
 from repro.quant import apply as japply
-from repro_torch import configs
+from repro_torch import configs, tree
 from repro_torch.kernels import ops
 from repro_torch.kernels.act_quant import act_quant, kv_append_int8
 from repro_torch.kernels.attention_int8kv import decode_attention_int8kv
@@ -85,11 +86,23 @@ def test_arch_configs_match_jax(arch):
 
 
 def test_unported_archs_raise():
-    for arch in ("zamba2-1.2b", "qwen3-moe-30b-a3b", "nope"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            configs.get_config(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            configs.get_smoke_config(arch)
+    """Every arch of the JAX registry resolves, the MoE, Mamba2-hybrid
+    and xLSTM ids included, to the JAX configs' fields; an unknown id
+    raises."""
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
+    for arch in ("zamba2-1.2b", "xlstm-1.3b", "moonshot-v1-16b-a3b",
+                 "qwen3-moe-30b-a3b"):
+        for get in ("get_config", "get_smoke_config"):
+            j, t = getattr(jconfigs, get)(arch), getattr(configs, get)(arch)
+            for f in dataclasses.fields(j):
+                if f.name not in ("dtype", "param_dtype"):
+                    assert getattr(t, f.name) == getattr(j, f.name), f.name
+        assert [dataclasses.asdict(c) for c in configs.shapes_for(arch)] == \
+            [dataclasses.asdict(c) for c in jconfigs.shapes_for(arch)]
+    for get in (configs.get_config, configs.get_smoke_config,
+                configs.shapes_for):
+        with pytest.raises(KeyError, match="nope"):
+            get("nope")
 
 
 # --- layers --------------------------------------------------------------------
@@ -171,9 +184,49 @@ def test_init_lm_has_the_jax_shapes_and_scales():
     assert abs(float(p["blocks"]["mlp"]["wd"].std()) - 1024 ** -0.5) < 2e-3
     assert torch.equal(tfm.init_lm(big, seed=1, device="cpu")["embed"],
                        p["embed"])
-    for bad in (dict(block_pattern="zamba2"), dict(moe=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tfm.init_lm(dataclasses.replace(cfg, **bad), device="cpu")
+    # the other block patterns build the JAX tree's keys and shapes
+    for other in (dict(block_pattern="zamba2", n_layers=4),
+                  dict(moe=True, n_experts=4, top_k=2)):
+        jo = dataclasses.replace(jcfg, **other)
+        want = jax.tree.map(lambda a: (a.shape, str(a.dtype)), jax.eval_shape(
+            lambda key: jtfm.init_lm(key, jo), jax.random.PRNGKey(0)))
+        got = tfm.init_lm(dataclasses.replace(cfg, **other), device="cpu")
+        assert jax.tree.map(
+            lambda a: (tuple(a.shape), str(a.dtype).replace("torch.", "")),
+            got, is_leaf=lambda a: isinstance(a, torch.Tensor)) == want
+
+
+# sha256 (first 32 hex digits) over every (path, bytes) of the dense
+# archs' seeded smoke trees, in JAX's leaf order, taken before the
+# MoE, Mamba2-hybrid and xLSTM families joined init_lm
+DENSE_INIT_SHA256 = {
+    ("musicgen-large", 0): "235f2c55e919a9dadb554089a9bd01fe",
+    ("musicgen-large", 3): "8c4ccf1c972a0af86373f96512af58c4",
+    ("qwen1.5-110b", 0): "102d3e541fb1455c2d8ad12ce239f547",
+    ("qwen1.5-110b", 3): "157e1fcb5826f766a37a53672441740d",
+    ("llama3.2-3b", 0): "53b235566ee0195ffb7d2077fc6a06c3",
+    ("llama3.2-3b", 3): "dc91ec05ed801a3ca5cf71ac44d6ba3c",
+    ("nemotron-4-15b", 0): "ef7d7746777a5b6b1eaca483de772427",
+    ("nemotron-4-15b", 3): "fc471be2caacec74dc9c98d2ebde1b43",
+    ("qwen2-0.5b", 0): "a9503907720d663fdf65b585b09e3a4a",
+    ("qwen2-0.5b", 3): "e80cade9ef9aca3ceb3ffc7a0279319c",
+    ("chameleon-34b", 0): "b6e68ea364349c845ad72a74cfa2679d",
+    ("chameleon-34b", 3): "42bd3475fe15c395c59a1f8309ccb894",
+}
+
+
+@pytest.mark.parametrize("arch,seed", sorted(DENSE_INIT_SHA256))
+def test_dense_init_lm_draws_are_unchanged(arch, seed):
+    """The six dense archs' seeded ``init_lm`` weights are bit for bit
+    those drawn before the other families were ported, so every seeded
+    gate built on them holds as before."""
+    h = hashlib.sha256()
+    params = tfm.init_lm(configs.get_smoke_config(arch), seed=seed,
+                         device="cpu")
+    for path, leaf in tree.items(params):
+        h.update(path.encode())
+        h.update(leaf.numpy().tobytes())
+    assert h.hexdigest()[:32] == DENSE_INIT_SHA256[(arch, seed)]
 
 
 # --- decode --------------------------------------------------------------------

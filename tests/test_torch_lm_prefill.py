@@ -42,7 +42,11 @@ from repro_torch.models.lm.config import SHAPES
 from repro_torch.quant import apply
 from repro_torch.weights import lm_params_from_numpy
 
-ARCHS = configs.ARCH_IDS
+# the transformer-pattern archs without MoE blocks; the other families:
+# tests/test_torch_lm_{moe,ssm,xlstm}.py
+ARCHS = tuple(a for a in configs.ARCH_IDS
+              if configs.get_config(a).block_pattern == "transformer"
+              and not configs.get_config(a).moe)
 B, S = 2, 16
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -262,12 +266,19 @@ def test_decode_matches_jax(arch, kv, extra):
 # --- registry and input specs ----------------------------------------------
 
 def test_shapes_and_input_specs_match_jax():
+    """Every arch of the JAX registry, in its order: ``shapes_for``
+    (long_500k for the two sub-quadratic archs only) and each cell's
+    input specs."""
     assert SHAPES == tuple(type(SHAPES[0])(**dataclasses.asdict(s))
                            for s in JSHAPES)
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
     assert set(ARCHS) == {a for a in jconfigs.ARCH_IDS
                           if jconfigs.get_config(a).block_pattern
                           == "transformer" and not jconfigs.get_config(a).moe}
-    for arch in ARCHS:
+    long = [a for a in configs.ARCH_IDS
+            if "long_500k" in [c.shape_name for c in configs.shapes_for(a)]]
+    assert long == ["zamba2-1.2b", "xlstm-1.3b"]
+    for arch in configs.ARCH_IDS:
         want = jconfigs.shapes_for(arch)
         got = configs.shapes_for(arch)
         assert [dataclasses.asdict(s) for s in got] == \
@@ -281,9 +292,6 @@ def test_shapes_and_input_specs_match_jax():
                 assert tuple(spec[k].shape) == s.shape
                 assert str(spec[k].dtype) == "torch." + str(s.dtype)
                 assert spec[k].device.type == "meta"
-    for arch in ("zamba2-1.2b", "moonshot-v1-16b-a3b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            configs.shapes_for(arch)
 
 
 def test_so3krates_paper_config_matches_jax():
