@@ -289,6 +289,31 @@
    it only with moved routing, printed, then held with the CPU's routing
    pinned: ``tools/moe_routing``). The phase within 180 s; every number
    beside the card's name and power limit.
+13. Runs the distribution layer (``launch/{mesh,sharding,dryrun}.py``;
+   no kernel of the port, as none of the reference's). (a) Phase 11
+   (b)'s case (qwen2-0.5b's width, two layers, float32, B=2, S=64) as
+   ``make_train_step(grad_specs=param_specs)`` on DTensor parameters
+   placed by ``param_specs`` on the local (1, 1) NCCL mesh
+   (``make_local_mesh``), under ``implicit_replication()``, counted,
+   against the plain step: 0 launches of every kernel; the loss within
+   1e-5 relative and every gradient and updated parameter within phase
+   11 (b)'s bounds (the embedding's backward sums with atomics). Prints
+   ms per step on the mesh and plain, paired in one call (plain, mesh,
+   mesh, plain; DTensor's host cost on one card, ungated) and the first
+   mesh step's seconds. (b) The updated parameters saved from the mesh
+   and restored with ``restore(shardings=)``: every leaf a DTensor on
+   its sharding's placements, equal to the saved one, every digest
+   verified. (c) ``python -m repro_torch.launch.dryrun`` in one process
+   per cell, all started together, cells whose step DTensor propagates
+   on the card's torch: musicgen-large train_4k (fsdp), moonshot-v1-16b-
+   a3b prefill_32k (fsdp) and zamba2-1.2b long_500k (tp) on the single
+   mesh and musicgen-large prefill_32k (zero3) on the multi mesh, each
+   on a fake process group of 256 or 512 ranks with meta shards: each
+   exits 0 and writes its record, whose keys are the JAX dry run's
+   record's (read from its source); prints each record's per-device
+   argument bytes, counted FLOPs against ``analytic_flops`` per device
+   and collective bytes by kind. The phase within 150 s; every number
+   beside the card's name and power limit.
 
 Phase 2 also holds the act-quant kernel bit for bit (float32 and bf16),
 its KV entry (the decode's whole int8 KV write) byte for byte over a
@@ -452,6 +477,21 @@ FAM_BATCH, FAM_SEQ, FAM_DECODE, FAM_FORCED = 2, 256, 16, 64
 FAM_SMOKE_SEQ, FAM_SMOKE_STEPS = 32, 8
 FAM_CARD_TOL, FAM_F32_TOL = 1e-4, 5e-3
 FAM_PHASE_S = 180.0
+# phase 13: the distribution layer. (a) phase 11 (b)'s case on the local
+# (1, 1) NCCL mesh against the plain step, timed DIST_TIMING_REPS times
+# each in turns; (c) the dry run (launch/dryrun.py) of DRYRUN_CELLS, one
+# process each, under the tag DRYRUN_TAG, within DRYRUN_TIMEOUT_S; the
+# phase's limit in seconds
+DIST_TIMING_REPS = 5
+# (arch, shape, mesh, policy): cells whose step DTensor propagates on the
+# card's torch (2.11: the tp policy fails every cell but zamba2's
+# long_500k there; ROADMAP.md section C)
+DRYRUN_CELLS = (("musicgen-large", "train_4k", "single", "fsdp"),
+                ("moonshot-v1-16b-a3b", "prefill_32k", "single", "fsdp"),
+                ("zamba2-1.2b", "long_500k", "single", "tp"),
+                ("musicgen-large", "prefill_32k", "multi", "zero3"))
+DRYRUN_TAG, DRYRUN_TIMEOUT_S = "chip_smoke", 120.0
+DIST_PHASE_S = 150.0
 TRUNK_W8 = (64, 192)         # wq | wk | wm
 TRUNK_W4 = (64, 32)          # wa | wb
 OTHER_W8 = {"w_upd": (64, 64), "w_vnorm": (16, 64), "ro_w1": (80, 64),
@@ -4286,7 +4326,9 @@ def run_lm_train_full(torch, dev, ident):
 def run_lm_train_gap(torch, dev, ident):
     """Phase 11 (b): one launcher step on the card against the CPU at
     qwen2-0.5b's width, two layers deep, float32; ``quant none``, then
-    qat_w4a8 with ef8; ef_compress alone bit for bit."""
+    qat_w4a8 with ef8; ef_compress alone bit for bit. Returns the
+    ``quant none`` step's bounds per leaf, (gradients, parameters after
+    the update), which phase 13 (a) holds the mesh step to."""
     from repro_torch import tree
     from repro_torch.data.tokens import synthetic_token_batches
     from repro_torch.models.lm.transformer import init_lm
@@ -4311,6 +4353,8 @@ def run_lm_train_gap(torch, dev, ident):
                                range(N_JITTERS))
         g_bd = {k: max(1e-4, F32_GRAD_FACTOR * v) for k, v in g_sp.items()}
         p_bd = {k: max(1e-4, F32_GRAD_FACTOR * v) for k, v in p_sp.items()}
+        if mode == "none":
+            bounds = (g_bd, p_bd)
         cpu_s = time.perf_counter() - t0
 
         def held(run, what):
@@ -4376,6 +4420,7 @@ def run_lm_train_gap(torch, dev, ident):
         print(f"  {name}: the CPU's step and {N_JITTERS} jittered runs took "
               f"{cpu_s:.1f} s [{ident}]")
         del card, host
+    return bounds
 
 
 def run_lm_train_resume(torch, dev, ident):
@@ -4435,7 +4480,8 @@ def run_lm_train_resume(torch, dev, ident):
 
 
 def run_lm_train(torch, dev):
-    """Phase 11 (the module docstring). Returns {"launches": ...}."""
+    """Phase 11 (the module docstring). Returns {"launches": ...,
+    "bounds": (b)'s ``quant none`` bounds}."""
     import threading
     t_phase, ident = time.perf_counter(), gpu_identity()
     launches = run_lm_train_full(torch, dev, ident)
@@ -4455,7 +4501,7 @@ def run_lm_train(torch, dev):
     worker = threading.Thread(target=resume, name="lm-resume-drill")
     worker.start()
     try:
-        run_lm_train_gap(torch, dev, ident)
+        bounds = run_lm_train_gap(torch, dev, ident)
     finally:
         worker.join(300)
     require(not worker.is_alive(), "the kill and resume drill did not end")
@@ -4468,7 +4514,7 @@ def run_lm_train(torch, dev):
     print(f"  phase 11 took {took:.1f} s [{ident}]")
     require(took <= LM_TRAIN_PHASE_S, f"phase 11 took {took:.1f} s, over "
                                       f"{LM_TRAIN_PHASE_S:.0f}")
-    return {"launches": launches}
+    return {"launches": launches, "bounds": bounds}
 
 
 # --- phase 12: the MoE, Mamba2-hybrid and xLSTM families -------------------
@@ -4745,6 +4791,217 @@ def run_lm_families(torch, dev):
     return {"launches": launches, "held": held, "k6_us": k6_us}
 
 
+# --- phase 13: the distribution layer ---------------------------------------
+
+def jax_record_keys():
+    """(top-level keys, memory keys) of the record the JAX dry run writes:
+    the dict literal ``rec`` in its ``run_cell``, read from the source
+    (nothing of it is imported)."""
+    import ast
+    src = (Path(__file__).resolve().parent
+           / "src/repro/launch/dryrun.py").read_text()
+    fn = next(n for n in ast.walk(ast.parse(src))
+              if isinstance(n, ast.FunctionDef) and n.name == "run_cell")
+    rec = next(n.value for n in ast.walk(fn) if isinstance(n, ast.Assign)
+               and getattr(n.targets[0], "id", None) == "rec")
+    keys = [k.value for k in rec.keys]
+    return set(keys), {k.value for k in rec.values[keys.index("memory")]
+                       .keys}
+
+
+def start_dryruns():
+    """One ``python -m repro_torch.launch.dryrun`` process per cell of
+    DRYRUN_CELLS, all started together (each is one host thread of
+    sharding propagation; the card is not used)."""
+    import os
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = []
+    for arch, shape, mesh, policy in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--policy", policy,
+               "--tag", DRYRUN_TAG]
+        procs.append(((arch, shape, mesh, policy), subprocess.Popen(
+            cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def finish_dryruns(procs, ident):
+    """Phase 13 (c): wait for every dry-run process (killing any past
+    DRYRUN_TIMEOUT_S), then gate and print each cell's record."""
+    from repro_torch.launch.dryrun import cell_path
+    deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+    outs = []
+    try:
+        for cell, proc in procs:
+            try:
+                out, _ = proc.communicate(
+                    timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate()
+                out += f"\n(killed after {DRYRUN_TIMEOUT_S:.0f} s)"
+            outs.append((cell, proc.returncode, out))
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    keys, mem_keys = jax_record_keys()
+    for (arch, shape, mesh, policy), rc, out in outs:
+        path = Path(cell_path(arch, shape, mesh, DRYRUN_TAG))
+        require(rc == 0 and path.exists(),
+                f"dry run {arch} x {shape} x {mesh} ({policy}): exit {rc}, "
+                f"record "
+                f"{'written' if path.exists() else 'missing'}: "
+                f"{out.strip()[-1500:]}")
+        rec = json.loads(path.read_text())
+        require(set(rec) == keys and set(rec["memory"]) == mem_keys,
+                f"dry run {arch} x {shape} x {mesh}: keys "
+                f"{sorted(set(rec) ^ keys)} / "
+                f"{sorted(set(rec['memory']) ^ mem_keys)} differ from the "
+                "JAX record's")
+        n = rec["n_devices"]
+        coll = ", ".join(f"{k} {v:.4g} B x{rec['collective_counts'][k]}"
+                         for k, v in rec["collective_bytes"].items() if v)
+        print(f"  {arch} x {shape} x {mesh}, {policy} ({n} ranks, "
+              f"{rec['kind']}, "
+              f"B={rec['global_batch']}, S={rec['seq_len']}): per device "
+              f"argument bytes {rec['memory']['argument_bytes']:.4g}, "
+              f"output {rec['memory']['output_bytes']:.4g}, peak "
+              f"{rec['memory']['peak_bytes']:.4g} (meta shards); counted "
+              f"FLOPs {rec['flops']:.4g} against analytic_flops / {n} = "
+              f"{rec['analytic_flops'] / n:.4g} (ratio "
+              f"{rec['flops'] * n / rec['analytic_flops']:.3f}); "
+              f"collectives per device: {coll or 'none'}; placement "
+              f"{rec['lower_s']} s, step {rec['compile_s']} s; keys = the "
+              f"JAX record's [host of {ident}]")
+
+
+def run_distribution(torch, dev, bounds):
+    """Phase 13 (the module docstring). ``bounds``: phase 11 (b)'s
+    ``quant none`` bounds per leaf, (gradients, parameters after the
+    update). Returns {"launches": ...}."""
+    import tempfile
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import tree
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.tokens import synthetic_token_batches
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.lm.config import ShapeCell
+    from repro_torch.models.lm.transformer import init_lm
+    from repro_torch.tools.lm_train_gap import (
+        GAP_BATCH, GAP_SEQ, gap_config, launcher_optimizer, tree_gaps)
+    t_phase, ident = time.perf_counter(), gpu_identity()
+    g_bd, p_bd = bounds
+    cfg, opt = gap_config(), launcher_optimizer()
+    params = tree.tree_map(lambda t: t.to(dev),
+                           init_lm(cfg, seed=0, device="cpu"))
+    it = synthetic_token_batches(cfg, GAP_BATCH, GAP_SEQ, seed=17)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
+    it.close()
+    mesh = make_local_mesh(dev)
+    specs = shd.param_specs(params, cfg, mesh)
+    sh = shd.to_shardings(specs, mesh)
+    placed = shd.place(params, sh)
+    b_sh = shd.to_shardings(shd.batch_specs(
+        cfg, ShapeCell("custom", GAP_SEQ, GAP_BATCH, "train"), mesh), mesh)
+    on_mesh = {k: distribute_tensor(v, mesh, b_sh[k].placements)
+               for k, v in batch.items()}
+    plain_step = steps.make_train_step(cfg, opt)
+    mesh_step = steps.make_train_step(cfg, opt, grad_specs=specs)
+
+    def on_the_mesh():
+        with implicit_replication():
+            return mesh_step(placed, opt.init(placed), on_mesh)
+
+    def mesh_grads():
+        with implicit_replication():
+            return steps.lm_value_and_grad(placed, cfg, on_mesh)[1]
+
+    def plain():
+        return plain_step(params, opt.init(params), batch)
+    print(f"  (a) make_train_step(grad_specs=param_specs) on DTensor "
+          f"parameters over the (1, 1) NCCL mesh against the plain step: "
+          f"qwen2-0.5b's width, {cfg.n_layers} layers, float32, "
+          f"B={GAP_BATCH}, S={GAP_SEQ}")
+    t0 = time.perf_counter()
+    (got, g_mesh), counts = counted_run(lambda: (on_the_mesh(),
+                                                 mesh_grads()))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    require(not nonzero(counts), f"the mesh step launched kernels: "
+                                 f"{nonzero(counts)}")
+    want, g_plain = plain(), steps.lm_value_and_grad(params, cfg, batch)[1]
+
+    def full(t):
+        return tree.tree_map(lambda x: x.full_tensor()
+                             if isinstance(x, DTensor) else x, t)
+    require(all(isinstance(x, DTensor) for x in tree.leaves(got[0])),
+            "the mesh step's parameters are not DTensors")
+    loss_rel = abs(float(full(got[2])) - float(want[2])) / abs(float(
+        want[2]))
+    print(f"  loss {float(full(got[2])):.6f} on the mesh against "
+          f"{float(want[2]):.6f} plain, {loss_rel:.3g} relative (bound "
+          "1e-05)")
+    require(loss_rel <= 1e-5, f"mesh loss {loss_rel} > 1e-5")
+    for kind, gaps, bd in (("gradient", tree_gaps(full(g_mesh), g_plain),
+                            g_bd),
+                           ("parameter after the update",
+                            tree_gaps(full(got[0]), want[0]), p_bd)):
+        worst = max(gaps, key=lambda k: gaps[k] / bd[k])
+        print(f"  worst {kind} leaf {worst}: {gaps[worst]:.3g} of its "
+              f"largest |value| (phase 11 (b)'s bound {bd[worst]:.3g}); "
+              f"{sum(v == 0 for v in gaps.values())} of {len(gaps)} leaves "
+              "bit for bit")
+        require(all(gaps[k] <= bd[k] for k in gaps),
+                f"mesh {kind}s past phase 11 (b)'s bounds: "
+                f"{ {k: v for k, v in gaps.items() if v > bd[k]} }")
+    # DTensor's host cost on one card, paired: plain, mesh, mesh, plain
+    times = {"plain": [], "mesh": []}
+    for which in ("plain", "mesh", "mesh", "plain"):
+        times[which].append(host_ms(torch, on_the_mesh if which == "mesh"
+                                    else plain, DIST_TIMING_REPS))
+    print(f"  ms per step (median of {DIST_TIMING_REPS}, host clock, in "
+          f"the order plain, mesh, mesh, plain): mesh "
+          f"{times['mesh'][0]:.3f}, {times['mesh'][1]:.3f}; plain "
+          f"{times['plain'][0]:.3f}, {times['plain'][1]:.3f}; the mesh's "
+          f"first step with its sharding propagation {first_s:.1f} s; "
+          f"launches 0 [{ident}]")
+    procs = start_dryruns()
+    try:
+        print("  (b) a checkpoint saved from the mesh, restored onto it")
+        with tempfile.TemporaryDirectory(prefix="mesh_ckpt_") as d:
+            mgr = CheckpointManager(d)
+            mgr.save(1, got[0])
+            back = mgr.restore(1, got[0], device=dev, shardings=sh)
+            flat_sh, saved = dict(tree.items(sh)), dict(tree.items(got[0]))
+            for k, v in tree.items(back):
+                require(isinstance(v, DTensor) and v.placements
+                        == flat_sh[k].placements == saved[k].placements,
+                        f"restored {k}: placements "
+                        f"{getattr(v, 'placements', None)}")
+                require(torch.equal(v.full_tensor(),
+                                    saved[k].full_tensor()),
+                        f"restored {k} differs from the saved leaf")
+            n = len(mgr.restore_arrays(1))      # every digest verified
+        print(f"  {n} leaves restored onto their placements, every digest "
+              "verified, equal to the saved parameters")
+        print(f"  (c) the dry run at full width, one process per cell "
+              f"({len(DRYRUN_CELLS)} together)")
+    finally:
+        finish_dryruns(procs, ident)
+    took = time.perf_counter() - t_phase
+    print(f"  phase 13 took {took:.1f} s [{ident}]")
+    require(took <= DIST_PHASE_S, f"phase 13 took {took:.1f} s, over "
+                                  f"{DIST_PHASE_S:.0f}")
+    return {"launches": counts}
+
+
 def main() -> int:
     src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch").is_dir():
@@ -4846,6 +5103,11 @@ def main() -> int:
           f"deep; B={FAM_BATCH}, S={FAM_SEQ}, bf16); the smoke configs card "
           "against CPU")
     families = run_lm_families(torch, dev)
+    print("phase 13: the distribution layer: the train step on the local "
+          "(1, 1) NCCL mesh against the plain step, a checkpoint restored "
+          "onto the mesh, the dry run at full width "
+          f"({', '.join(' x '.join(c) for c in DRYRUN_CELLS)})")
+    distribution = run_distribution(torch, dev, lm_train["bounds"])
     for row in rows:
         if row["name"] == "mddq_encode_kernel":
             row["training_shape"] = training["k4_training"]
@@ -4870,7 +5132,9 @@ def main() -> int:
                    "health_plane": health["launches"].get(row["name"], 0),
                    "lm_prefill": prefill["launches"].get(row["name"], 0),
                    "lm_train": lm_train["launches"].get(row["name"], 0),
-                   "lm_families": families["launches"].get(row["name"], 0)}
+                   "lm_families": families["launches"].get(row["name"], 0),
+                   "distribution": distribution["launches"].get(
+                       row["name"], 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     require("jax" not in sys.modules and "repro" not in sys.modules,

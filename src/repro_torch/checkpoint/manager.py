@@ -19,7 +19,12 @@ written by either package restores in the other.
 Trees are nested dicts (and lists or tuples) of tensors or arrays; keys
 join with ``/`` in the order JAX's ``tree_map_with_path`` visits them
 (``repro_torch.tree``: dict keys sorted, sequences by index; ``None`` is
-no leaf). A tensor on the card is copied to the host before it is saved.
+no leaf). A tensor on the card is copied to the host before it is saved;
+a DTensor leaf is saved as its ``full_tensor()``, so a directory written
+from a device mesh holds the arrays one written without a mesh holds.
+``restore(..., shardings=)`` places each leaf that has a sharding on its
+mesh (``launch/sharding.NamedSharding``), as the reference's
+``jax.device_put(arr, sh)`` does: the elastic-rescale path.
 The session layer (``repro_torch.sessions``) drives this manager for
 trajectory state.
 """
@@ -35,6 +40,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.tree import items as _items
@@ -54,6 +60,8 @@ class CheckpointError(RuntimeError):
 
 
 def _host(x) -> np.ndarray:
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
@@ -176,15 +184,18 @@ class CheckpointManager:
         return {key: np.load(self._verified_path(step, key, meta))
                 for key, meta in manifest["arrays"].items()}
 
-    def restore(self, step: int, like, device: DeviceLike = None):
+    def restore(self, step: int, like, device: DeviceLike = None,
+                shardings=None):
         """Restore into the structure of ``like`` as tensors on ``device``
-        (None = the CUDA device, or raise). Every array is verified first:
-        a digest mismatch, a truncated file, or a key ``like`` has and the
-        manifest lacks raises :class:`CheckpointError`. The JAX package's
-        ``shardings=`` (placement on a device mesh) is not ported: the
-        port restores onto one device."""
+        (None = the CUDA device, or raise). If ``shardings`` (a tree of
+        ``like``'s structure whose leaves are ``NamedSharding``s or None)
+        is given, each leaf with a sharding becomes a DTensor placed on its
+        mesh (``distribute_tensor``). Every array is verified first: a
+        digest mismatch, a truncated file, or a key ``like`` has and the
+        manifest lacks raises :class:`CheckpointError`."""
         dev = resolve_device(device)
         manifest = self._manifest(step)
+        flat_sh = dict(_items(shardings)) if shardings is not None else {}
         values = {}
         for key, _ in _items(like):
             meta = manifest["arrays"].get(key)
@@ -195,6 +206,10 @@ class CheckpointManager:
                     f"structure")
             arr = np.load(self._verified_path(step, key, meta))
             values[key] = torch.from_numpy(np.array(arr)).to(dev)
+            sh = flat_sh.get(key)
+            if sh is not None:
+                values[key] = distribute_tensor(values[key], sh.mesh,
+                                                sh.placements)
         return _unflatten(like, values)
 
     def extra(self, step: int) -> dict:

@@ -4,15 +4,18 @@ of a shape cell and the abstract trees: counterpart of
 
 ``make_train_step``, ``make_prefill_step`` and ``make_serve_step`` return
 plain callables over the port's ``lm_loss``, ``forward`` and
-``decode_step`` (the JAX launcher jits its own with shardings; the port
-runs them eagerly on one device). ``lm_value_and_grad`` is
+``decode_step``, run eagerly: on plain tensors on one device, or on
+DTensors placed on a device mesh (``launch/sharding.py``), where DTensor
+propagates the placements op by op (call them under
+``torch.distributed.tensor.experimental.implicit_replication()``: the
+model makes plain tensors, RoPE tables and masks, that meet the
+parameters). ``lm_value_and_grad`` is
 ``jax.value_and_grad(lm_loss)``, with zeros for a leaf the loss does not
 reach, as JAX gives them. ``input_specs``, ``abstract_params``,
 ``abstract_cache`` and ``abstract_opt_state`` give the shapes and dtypes
 of the JAX functions' ``ShapeDtypeStruct``s as tensors on the ``meta``
 device: no weight is drawn and no memory allocated, so the 110B config's
-tree takes milliseconds. The gradient sharding constraints of
-``make_train_step(grad_specs=...)`` are ROADMAP.md §A item 3.
+tree takes milliseconds.
 """
 from __future__ import annotations
 
@@ -20,15 +23,17 @@ import dataclasses
 from typing import Callable, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree
+from repro_torch.launch.sharding import placements
 from repro_torch.models.lm import transformer as tfm
 from repro_torch.models.lm.config import LMConfig, ShapeCell
 from repro_torch.optim.adamw import AdamW, AdamWState
 
-__all__ = ["lm_value_and_grad", "make_train_step", "make_prefill_step",
-           "make_serve_step", "input_specs", "abstract_params",
-           "abstract_cache", "abstract_opt_state"]
+__all__ = ["lm_value_and_grad", "constrain_grads", "make_train_step",
+           "make_prefill_step", "make_serve_step", "input_specs",
+           "abstract_params", "abstract_cache", "abstract_opt_state"]
 
 
 def lm_value_and_grad(params, cfg: LMConfig, batch: Dict[str, torch.Tensor]
@@ -50,20 +55,31 @@ def lm_value_and_grad(params, cfg: LMConfig, batch: Dict[str, torch.Tensor]
         for (k, p), g in zip(flat, grads)})
 
 
+def constrain_grads(grads, params, grad_specs):
+    """Each DTensor gradient redistributed to the placements its
+    ``PartitionSpec`` gives on its parameter's mesh (a partial sum over
+    the data axes then lowers as a reduce-scatter, not an all-reduce); a
+    plain tensor's gradient is left as it is."""
+    def leaf(g, p, spec):
+        if not isinstance(p, DTensor):
+            return g
+        return g.redistribute(p.device_mesh, placements(spec, p.device_mesh))
+    return tree.tree_map(leaf, grads, params, grad_specs)
+
+
 def make_train_step(cfg: LMConfig, opt: AdamW,
                     grad_specs=None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, loss): one
-    ``opt.update`` on :func:`lm_value_and_grad`'s gradients. The
-    reference's ``grad_specs`` (sharding constraints on the gradients)
-    belong to the mesh, ROADMAP.md §A item 3: any but None raises."""
-    if grad_specs is not None:
-        raise NotImplementedError(
-            "grad_specs constrains gradients to a device mesh's shardings: "
-            "mesh and sharding are ROADMAP.md §A item 3; the port trains "
-            "on one device")
+    ``opt.update`` on :func:`lm_value_and_grad`'s gradients.
+
+    grad_specs: optional PartitionSpec tree (``sharding.param_specs``);
+    each gradient is redistributed to it right after autodiff
+    (:func:`constrain_grads`), the reference's ZeRO-2-style constraint."""
 
     def train_step(params, opt_state: AdamWState, batch):
         loss, grads = lm_value_and_grad(params, cfg, batch)
+        if grad_specs is not None:
+            grads = constrain_grads(grads, params, grad_specs)
         new_params, new_state = opt.update(grads, opt_state, params)
         return new_params, new_state, loss
 

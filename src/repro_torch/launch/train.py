@@ -1,5 +1,6 @@
 """Training launcher of the LMs (every arch of ``configs.ARCH_IDS``):
-counterpart of ``repro/launch/train.py``, on one device.
+counterpart of ``repro/launch/train.py``, on a ``torch.distributed``
+device mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --steps 50 --batch 8 --seq 256 --smoke --device cpu
@@ -26,10 +27,20 @@ a resumed run starts AdamW's moments, its step count (and so the
 schedule's warm-up) and the residual from zero, and its data from the
 stream's first batch, as the reference's does.
 
-There is no mesh: ``--multi-pod`` (the reference's production mesh over
-pods) raises ``NotImplementedError``, as mesh and sharding are ROADMAP.md
-§A item 3. ``--device`` (the card unless given ``cpu``) is the port's own
-flag; with no card and no ``--device`` the launcher raises.
+The mesh, as the reference's: the parameters are DTensors placed by
+``sharding.param_specs`` on it and each batch by ``batch_specs``; a
+resume restores onto those placements, and the step runs under
+``implicit_replication()``. Under ``--smoke`` it is the local (1, 1)
+mesh (``mesh.make_local_mesh``, which opens a process group of one
+process). Without it, it is the production mesh when the launcher runs
+on a world of 256 ranks (512 with ``--multi-pod``; a launcher such as
+``torchrun`` sets ``WORLD_SIZE``, and the group is opened from the
+environment), and the local mesh, printing ``[mesh] local (1, 1)``, in
+a world of one process. ``--multi-pod`` on a world that is not 512 ranks
+raises, naming the world's size. ``--device`` (the card unless given
+``cpu``) is the port's own flag; with no card and no ``--device`` the
+launcher raises. ``main`` returns the final parameters gathered into
+plain tensors.
 """
 from __future__ import annotations
 
@@ -41,17 +52,25 @@ import signal
 import time
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 
-from repro_torch import configs
+from repro_torch import configs, tree
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.tokens import synthetic_token_batches
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding as shd
 from repro_torch.launch import steps
+from repro_torch.launch.mesh import (make_local_mesh, make_production_mesh,
+                                     production_world)
 from repro_torch.models.lm import transformer as tfm
+from repro_torch.models.lm.config import ShapeCell
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.optim.compression import ef_compress, ef_init
 
-__all__ = ["StragglerWatchdog", "make_step", "parser", "main"]
+__all__ = ["StragglerWatchdog", "make_step", "launch_mesh", "parser",
+           "main"]
 
 
 class StragglerWatchdog:
@@ -93,6 +112,38 @@ def make_step(cfg, opt: AdamW, use_ef: bool):
     return train_step
 
 
+def _world(dev: torch.device) -> int:
+    """The process group's size, the group opened from the environment
+    first when a launcher started this process as one of several."""
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE",
+                                                        "1")) > 1:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def launch_mesh(smoke: bool, multi_pod: bool, dev: torch.device):
+    """The launcher's mesh (the module docstring)."""
+    world = _world(dev)
+    if multi_pod and world != production_world(True):
+        raise RuntimeError(
+            f"--multi-pod needs a world of {production_world(True)} ranks "
+            f"(2 pods x 16 x 16); this launch has a world of {world}")
+    if smoke:
+        return make_local_mesh(dev)
+    if world == production_world(multi_pod):
+        return make_production_mesh(multi_pod=multi_pod, device=dev)
+    if world != 1:
+        raise RuntimeError(
+            f"the production mesh needs a world of {production_world()} "
+            f"ranks; this launch has a world of {world}")
+    print("[mesh] local (1, 1)", flush=True)
+    return make_local_mesh(dev)
+
+
+def _full(x):
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
@@ -119,14 +170,20 @@ def main(argv=None) -> argparse.Namespace:
     """Run the launcher. Returns the parsed flags with what the run left:
     ``_cfg``, ``_params`` (the final parameters) and ``_log`` (one
     ``(step, loss, seconds since the loop began)`` per logged step, the
-    clock unrounded)."""
+    clock unrounded). A process group the launcher opens for its mesh
+    is closed when it returns or raises; one already open is left so."""
     args = parser().parse_args(argv)
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod needs the production device mesh over pods: mesh "
-            "and sharding are ROADMAP.md §A item 3; the port trains on one "
-            "device")
     dev = resolve_device(args.device)
+    opened = not dist.is_initialized()
+    try:
+        return _train(args, dev)
+    finally:
+        if opened and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args: argparse.Namespace, dev: torch.device
+           ) -> argparse.Namespace:
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
     cfg = dataclasses.replace(cfg, quant_mode=args.quant,
@@ -135,7 +192,12 @@ def main(argv=None) -> argparse.Namespace:
                               attn_chunk_q=min(1024, args.seq),
                               ssm_chunk=min(cfg.ssm_chunk, args.seq))
 
+    mesh = launch_mesh(args.smoke, args.multi_pod, dev)
+    cell = ShapeCell("custom", args.seq, args.batch, "train")
+
     params = tfm.init_lm(cfg, seed=0, device=dev)
+    p_sh = shd.to_shardings(shd.param_specs(params, cfg, mesh), mesh)
+    params = shd.place(params, p_sh)
     opt = AdamW(lr=cosine_schedule(args.lr, args.steps // 10, args.steps),
                 weight_decay=0.1, grad_clip=1.0)
     opt_state = opt.init(params)
@@ -150,21 +212,25 @@ def main(argv=None) -> argparse.Namespace:
     if latest is not None:
         print(f"[resume] restoring step {latest} from {ckpt_dir}",
               flush=True)
-        params = mgr.restore(latest, params, device=dev)
+        params = mgr.restore(latest, params, device=dev, shardings=p_sh)
         start_step = latest + 1
 
+    b_sh = shd.to_shardings(shd.batch_specs(cfg, cell, mesh), mesh)
     step_fn = make_step(cfg, opt, use_ef)
     log = []
     loss = None
     t_start = time.monotonic()
     data_iter = synthetic_token_batches(cfg, args.batch, args.seq, seed=17)
-    with contextlib.closing(data_iter):
+    with contextlib.closing(data_iter), implicit_replication():
         for step in range(start_step, args.steps):
-            batch = {k: torch.from_numpy(v).to(dev)
-                     for k, v in next(data_iter).items()}
+            batch = {k: distribute_tensor(
+                torch.from_numpy(v).to(dev), mesh,
+                b_sh.get(k, b_sh.get("tokens")).placements)
+                for k, v in next(data_iter).items()}
             with StragglerWatchdog(args.spmd_timeout):
                 params, opt_state, ef_state, loss = step_fn(
                     params, opt_state, ef_state, batch)
+            loss = _full(loss)
             if step % 10 == 0 or step == args.steps - 1:
                 loss_f = float(loss)
                 elapsed = time.monotonic() - t_start
@@ -174,7 +240,8 @@ def main(argv=None) -> argparse.Namespace:
             if args.ckpt_every and step and step % args.ckpt_every == 0:
                 mgr.save(step, params, extra={"loss": float(loss)})
 
-    args._cfg, args._params, args._log = cfg, params, log
+    args._cfg, args._params, args._log = cfg, tree.tree_map(_full,
+                                                           params), log
     if loss is None:
         print(f"done: step {args.steps - 1} was already checkpointed")
         return args

@@ -11,6 +11,11 @@ JAX package's ``repro.checkpoint``, on the CPU.
 * **One on-disk format.** The same tree saved by both packages gives the
   same file names, digests and bytes; a directory written by either
   restores in the other byte for byte (values, dtypes, shapes, extra).
+* **A device mesh** (a (1, 1) gloo mesh of this one process, closed in a
+  ``finally``): ``restore(shardings=)`` places each leaf on its
+  sharding, the counterpart of ``tests/test_distributed.py``'s
+  ``test_elastic_reshard_restore``, and a save of DTensor leaves is byte
+  for byte a save of the plain tensors.
 """
 import glob
 import json
@@ -20,6 +25,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro.checkpoint.manager import CheckpointManager as JCheckpointManager
 from repro_torch.checkpoint import CheckpointError, CheckpointManager
@@ -241,3 +248,62 @@ class TestAcrossPackages:
         assert np.asarray(out["nl"]["senders"]).dtype == np.int32
         _flip_byte(_array_files(cm, 6)[0])      # verified on the JAX side
         assert jcm.latest_step() is None
+
+
+@pytest.fixture
+def local_mesh():
+    from repro_torch.launch.mesh import make_local_mesh
+    try:
+        yield make_local_mesh("cpu")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+class TestMesh:
+    def test_elastic_reshard_restore(self, tmp_path, local_mesh):
+        """Restore onto explicit shardings (the rescale path): every leaf
+        a DTensor with its sharding's placements and the saved values; a
+        leaf whose sharding is None comes back a plain tensor."""
+        from repro_torch.launch import sharding as shd
+        cm = CheckpointManager(str(tmp_path), keep=1)
+        tree = _torch_tree()
+        del tree["step"]
+        cm.save(5, tree)
+        specs = {"coords": shd.P(None, "model", None), "veloc": shd.P(),
+                 "nl": {"senders": shd.P("data"), "mask": shd.P(None),
+                        "overflow": shd.P()}}
+        sh = shd.to_shardings(specs, local_mesh)
+        sh["nl"]["overflow"] = None
+        placed = shd.NamedSharding(local_mesh, (Shard(0), Replicate()),
+                                   shd.P("data"))
+        sh["nl"]["senders"] = placed     # a placement given as it is
+        out = cm.restore(5, tree, device="cpu", shardings=sh)
+        assert isinstance(out["coords"], DTensor)
+        # over a mesh dim of one device every spec entry is replicated
+        for key in ("coords", "veloc"):
+            assert out[key].placements == (Replicate(), Replicate())
+        assert out["nl"]["senders"].placements == sh["nl"]["senders"] \
+            .placements
+        assert out["coords"].device_mesh is local_mesh
+        assert not isinstance(out["nl"]["overflow"], DTensor)
+        for key in ("coords", "veloc"):
+            assert torch.equal(out[key].full_tensor(), tree[key])
+        assert torch.equal(out["nl"]["senders"].full_tensor(),
+                           tree["nl"]["senders"])
+
+    def test_save_from_the_mesh_is_a_plain_save(self, tmp_path, local_mesh):
+        from torch.distributed.tensor import distribute_tensor
+        tree = _torch_tree()
+        del tree["step"]
+        placed = {"coords": distribute_tensor(tree["coords"], local_mesh,
+                                              [Shard(0), Shard(2)]),
+                  "veloc": distribute_tensor(tree["veloc"], local_mesh,
+                                             [Replicate(), Replicate()]),
+                  "nl": tree["nl"]}
+        a = CheckpointManager(str(tmp_path / "plain")).save(1, tree)
+        b = CheckpointManager(str(tmp_path / "mesh")).save(1, placed)
+        assert _files(a) == _files(b)
+        with open(os.path.join(a, "manifest.json")) as f, \
+                open(os.path.join(b, "manifest.json")) as g:
+            assert json.load(f) == json.load(g)

@@ -69,6 +69,15 @@ def test_the_lm_family_modules_are_imported():
             "repro_torch.configs.xlstm_1p3b"} <= set(_modules())
 
 
+def test_the_distribution_modules_are_imported():
+    """The import check above covers the distribution layer: the mesh,
+    the sharding rules, the cost model, the collective counter and the
+    dry run."""
+    assert {"repro_torch.launch.mesh", "repro_torch.launch.sharding",
+            "repro_torch.launch.costs", "repro_torch.launch.hlo_analysis",
+            "repro_torch.launch.dryrun"} <= set(_modules())
+
+
 def test_no_source_file_imports_jax_or_repro():
     offenders = []
     for path in PKG.rglob("*.py"):
@@ -119,6 +128,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.serving import QuantizedEngine
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.serve import build_lm
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models.lm.attention import init_kv_cache
     from repro_torch.models.lm.transformer import init_cache, init_lm
     from repro_torch.checkpoint import CheckpointManager
@@ -149,6 +159,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                   lambda: ClusterPool.from_artifact("no_such_artifact.npz"),
                   lambda: ClusterPool.from_quantized(cfg, {}, None),
                   lambda: CheckpointManager(".").restore(0, like={}),
+                  lambda: make_local_mesh(),
                   lambda: make_ff(),
                   lambda: sample_dataset_md(0, 1, stride=1),
                   lambda: so3_trainer.train(cfg, {}, so3_trainer.TrainConfig()),

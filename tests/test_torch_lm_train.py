@@ -36,16 +36,24 @@ brackets):
 - ``make_train_step``: each step's loss to 1e-4 relative over 3 steps,
   against the JAX step jitted (its QAT sites recorded from inside
   the program and pinned as above).
+- ``make_train_step(grad_specs=...)`` on DTensor parameters over the
+  (1, 1) gloo mesh, one arch of each family: bit for bit against the
+  plain step (loss, updated parameters, both moments); the mesh's group
+  is destroyed in a ``finally``.
 """
 import contextlib
 import dataclasses
 import functools
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro import configs as jconfigs
 from repro.core import quantizers as jq
@@ -56,9 +64,12 @@ from repro.optim.adamw import AdamW as JAdamW
 from repro.optim.adamw import cosine_schedule as j_cosine
 from repro_torch import configs, tree
 from repro_torch.core import quantizers as tq
+from repro_torch.launch import sharding as shd
 from repro_torch.launch import steps
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.lm import layers as tlayers
 from repro_torch.models.lm import transformer as tfm
+from repro_torch.models.lm.config import ShapeCell
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.tools.lm_train_gap import jitter_embed, moved_sites
 from repro_torch.tools.lm_train_gap import qat_sites as port_sites
@@ -509,8 +520,67 @@ def test_make_train_step_matches_jax(arch, mode):
         got, _ = port(pins=j_sites)
     for g, w in zip(got, want):
         assert g == pytest.approx(w, rel=1e-4), (got, want)
-    with pytest.raises(NotImplementedError, match="§A item 3"):
-        steps.make_train_step(cfg, topt, grad_specs={})
+    # gradient constraints leave a step on plain tensors as it was
+    tp = lm_params_from_numpy(_jax_tree(arch), "cpu")
+    b0 = {k: _t(v) for k, v in batches[0].items()}
+    constrained = steps.make_train_step(
+        cfg, topt, grad_specs=shd.param_specs(tp, cfg, _STAND_IN_MESH))
+    assert torch.equal(constrained(tp, topt.init(tp), b0)[2],
+                       tstep(tp, topt.init(tp), b0)[2])
+
+
+# --- make_train_step on the local (1, 1) mesh --------------------------------
+
+# one arch of each family: dense, MoE, Mamba2 hybrid, xLSTM
+MESH_ARCHS = ("qwen2-0.5b", "qwen3-moe-30b-a3b", "zamba2-1.2b",
+              "xlstm-1.3b")
+_STAND_IN_MESH = SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=(1, 1))
+
+
+@pytest.fixture
+def local_mesh():
+    try:
+        yield make_local_mesh("cpu")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", MESH_ARCHS)
+def test_train_step_on_the_local_mesh_equals_the_plain_step(arch,
+                                                            local_mesh):
+    """``make_train_step(grad_specs=param_specs)`` on DTensor parameters
+    placed by ``param_specs`` on the (1, 1) gloo mesh (the batch by
+    ``batch_specs``), under ``implicit_replication()``, against the plain
+    step: the loss, every updated parameter and both AdamW moments bit
+    for bit, each leaf keeping its placements."""
+    cfg = _cfgs(arch)[1]
+    opt = AdamW(lr=cosine_schedule(3e-3, 1, 3), weight_decay=0.1,
+                grad_clip=1.0)
+    params = lm_params_from_numpy(_jax_tree(arch), "cpu")
+    batch = {k: _t(v) for k, v in _batch(cfg).items()}
+    want = steps.make_train_step(cfg, opt)(params, opt.init(params), batch)
+    specs = shd.param_specs(params, cfg, local_mesh)
+    placed = shd.place(params, shd.to_shardings(specs, local_mesh))
+    cell = ShapeCell("custom", S, B, "train")
+    b_sh = shd.to_shardings(shd.batch_specs(cfg, cell, local_mesh),
+                            local_mesh)
+    on_mesh = {k: distribute_tensor(v, local_mesh, b_sh[k].placements)
+               for k, v in batch.items()}
+    with implicit_replication():
+        got = steps.make_train_step(cfg, opt, grad_specs=specs)(
+            placed, opt.init(placed), on_mesh)
+    assert torch.equal(got[2].full_tensor(), want[2])
+    for name, g, w in (("params", got[0], want[0]),
+                       ("mu", got[1].mu, want[1].mu),
+                       ("nu", got[1].nu, want[1].nu)):
+        flat = dict(tree.items(g))
+        for k, v in tree.items(w):
+            assert isinstance(flat[k], DTensor), (name, k)
+            assert flat[k].placements == shd.placements(
+                dict(shd.spec_items(specs))[k], local_mesh), (name, k)
+            assert torch.equal(flat[k].full_tensor(), v), (name, k)
 
 
 # --- the abstract trees ------------------------------------------------------

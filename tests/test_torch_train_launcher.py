@@ -1,9 +1,12 @@
 """The port's training launcher (``launch/train.py``) on the CPU: a smoke
-run whose loss falls and whose checkpoints land at the expected steps,
+run on the local (1, 1) mesh whose loss falls and whose checkpoints land
+at the expected steps, an in-process resume onto the mesh's placements,
 the kill-and-resume drill (SIGKILL once step 20 is checkpointed, then the
-same command resumes from the newest valid step and finishes), the flags
-that raise (``--multi-pod``; no card and no ``--device``), and the
-straggler watchdog. Every subprocess has a timeout."""
+same command resumes from the newest valid step and finishes), the mesh
+the launcher picks, the flags that raise (``--multi-pod`` on a world that
+is not 512 ranks; no card and no ``--device``), and the straggler
+watchdog. Every subprocess has a timeout; the launcher closes the process
+group it opens."""
 import os
 import signal
 import subprocess
@@ -14,6 +17,9 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch.distributed as dist
+
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree
 from repro_torch.checkpoint import CheckpointManager
@@ -51,6 +57,47 @@ def test_smoke_run_learns_and_checkpoints(tmp_path, capsys):
                     tree.leaves(args._params)):
         assert torch.equal(a, b)
     assert _no_producer()
+    assert not dist.is_initialized()
+
+
+def test_smoke_resume_onto_the_local_mesh(tmp_path, capsys):
+    """A 6-step run, then the same directory taken to 21 steps: the second
+    run restores step 5 onto the mesh's placements and logs steps 10 and
+    20 (its loss falls); a third run finds step 20 already
+    checkpointed."""
+    ck = str(tmp_path / "ck")
+    flags = SMOKE + ["--batch", "2", "--seq", "32", "--lr", "3e-3",
+                     "--ckpt-every", "5", "--ckpt-dir", ck]
+    first = train.main(flags + ["--steps", "6"])
+    capsys.readouterr()
+    again = train.main(flags + ["--steps", "21"])
+    out = capsys.readouterr().out
+    assert f"[resume] restoring step 5 from {ck}" in out
+    assert [s for s, _, _ in again._log] == [10, 20]
+    assert all(not isinstance(p, DTensor)
+               for p in tree.leaves(again._params))
+    assert tree.leaves(first._params)[0].shape == \
+        tree.leaves(again._params)[0].shape
+    assert CheckpointManager(ck).all_steps() == [15, 20]
+    done = train.main(flags + ["--steps", "21"])
+    assert "already checkpointed" in capsys.readouterr().out
+    assert done._log == []
+    assert not dist.is_initialized()
+
+
+def test_the_launcher_mesh(capsys):
+    """One process, no ``--smoke``: the local mesh, announced; ``--smoke``:
+    the same mesh, silently; the group is the launcher's to close."""
+    dev = torch.device("cpu")
+    try:
+        mesh = train.launch_mesh(False, False, dev)
+        assert "[mesh] local (1, 1)" in capsys.readouterr().out
+        assert mesh.mesh_dim_names == ("data", "model")
+        assert tuple(mesh.shape) == (1, 1)
+        assert tuple(train.launch_mesh(True, False, dev).shape) == (1, 1)
+        assert capsys.readouterr().out == ""
+    finally:
+        dist.destroy_process_group()
 
 
 def _cmd(ck):
@@ -94,8 +141,11 @@ def test_kill_and_resume(tmp_path):
 
 
 def test_multi_pod_raises():
-    with pytest.raises(NotImplementedError, match="§A item 3"):
+    """The two-pod mesh needs 512 ranks: one process raises, naming its
+    world's size, and leaves no process group open."""
+    with pytest.raises(RuntimeError, match="512 ranks.*a world of 1"):
         train.main(SMOKE + ["--multi-pod"])
+    assert not dist.is_initialized()
 
 
 def test_no_card_and_no_device_raises(monkeypatch, tmp_path):
