@@ -222,12 +222,12 @@
    on this path, as none of the reference's is). (a) ``train.main`` in
    this process, as a user calls it: qwen2-0.5b at full width and depth
    (24 layers, d_model 896, vocab 151,936, tied; bf16 activations,
-   float32 parameters), ``--steps 30 --batch 8 --seq 256 --quant qat_w4a8
+   float32 parameters), ``--steps 20 --batch 8 --seq 256 --quant qat_w4a8
    --grad-compression ef8``, counted: every kernel's launches 0, every
    logged loss finite, the launcher's own last < first, the final
    checkpoint restored with every digest verified and its ``extra["loss"]``
    the last loss, no data thread left. Prints ms per step from the
-   launcher's clock (steps 10 to 29), tokens/s, peak device memory, one
+   launcher's clock (steps 10 to 19), tokens/s, peak device memory, one
    profiled ``make_train_step`` call (device busy, idle share, the ten
    longest kernel groups) and the step's bound (``train_work``: three
    times the forward's products at 989 TFLOP/s bf16, against the bytes of
@@ -254,8 +254,13 @@
    subprocess, killed with SIGKILL once step 20 is checkpointed; the same
    command then prints ``[resume] restoring step N`` (N the newest valid
    step), finishes, and leaves step 39 valid with every digest verified
-   and no ``step_*.tmp.*`` orphan. The phase within 180 s; every number
-   beside the card's name and power limit.
+   and no ``step_*.tmp.*`` orphan. The phase runs with glibc's malloc
+   told to serve every allocation from its heap and keep what is freed
+   (``kept_heap``): (b)'s CPU steps at the full vocabulary and (a)'s
+   checkpoints allocate and free tensors and buffers of half a gigabyte
+   and more, and fresh pages for each cost more than the arithmetic.
+   The phase within 180 s; every number beside the card's name and
+   power limit.
 12. Serves the MoE, Mamba2-hybrid and xLSTM families
    (``models/lm/{moe,ssm,xlstm}.py`` through ``transformer.py``; no
    kernel of the port is in these blocks, as none of the reference's is)
@@ -304,16 +309,26 @@
    and restored with ``restore(shardings=)``: every leaf a DTensor on
    its sharding's placements, equal to the saved one, every digest
    verified. (c) ``python -m repro_torch.launch.dryrun`` in one process
-   per cell, all started together, cells whose step DTensor propagates
-   on the card's torch: musicgen-large train_4k (fsdp), moonshot-v1-16b-
-   a3b prefill_32k (fsdp) and zamba2-1.2b long_500k (tp) on the single
-   mesh and musicgen-large prefill_32k (zero3) on the multi mesh, each
-   on a fake process group of 256 or 512 ranks with meta shards: each
-   exits 0 and writes its record, whose keys are the JAX dry run's
-   record's (read from its source); prints each record's per-device
-   argument bytes, counted FLOPs against ``analytic_flops`` per device
-   and collective bytes by kind. The phase within 150 s; every number
-   beside the card's name and power limit.
+   per cell, all started together, each on a fake process group of 256
+   or 512 ranks with meta shards: cells whose step DTensor propagated on
+   the card's torch before the dry run resharded, musicgen-large
+   train_4k (fsdp), moonshot-v1-16b-a3b prefill_32k (fsdp) and
+   zamba2-1.2b long_500k (tp) on the single mesh and musicgen-large
+   prefill_32k (zero3) on the multi mesh; and a tp cell for each class
+   of DTensor's refusals there (``launch/reshard.py``): qwen2-0.5b
+   decode_32k (14 heads split over 16) and musicgen-large decode_32k (a
+   flatten of a sharded dim) on the single mesh, llama3.2-3b decode_32k
+   (the embedding's ``aten.index`` on the 3-D mesh) on the multi mesh,
+   and zamba2-1.2b train_4k under cp on the single mesh (the conv's
+   pad, whose rule places its output off the mesh and then fails the
+   redistribute planner; its tp cells take over 100 s). Each
+   exits 0 and writes its record without ``"error"``, whose keys are the
+   JAX dry run's record's (read from its source); each of the last four
+   logs at least one reshard, and its reshards' collective bytes and
+   counts lie inside its record's. Prints each record's per-device
+   argument bytes, counted FLOPs against ``analytic_flops`` per device,
+   collective bytes by kind and its reshards. The phase within 150 s;
+   every number beside the card's name and power limit.
 
 Phase 2 also holds the act-quant kernel bit for bit (float32 and bf16),
 its KV entry (the decode's whole int8 KV write) byte for byte over a
@@ -450,8 +465,9 @@ PREFILL_PHASE_S = 150.0
 # phase 8's method and factor; on the LM a further jittered run needed at
 # most 2.88 of that spread, gradients and updated parameters, seeds 0-2
 # of the same tool); the kill and resume drill; the phase's limit in
-# seconds
-LM_TRAIN_STEPS, LM_PLAIN_STEPS = 30, 10
+# seconds (the qat steps cut from 30 to 20 to keep the phase inside it on
+# the slower hosts of the card machines)
+LM_TRAIN_STEPS, LM_PLAIN_STEPS = 20, 10
 LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 256
 LM_TRAIN_PHASE_S = 180.0
 # phase 12: the MoE, Mamba2-hybrid and xLSTM families at their published
@@ -483,13 +499,29 @@ FAM_PHASE_S = 180.0
 # process each, under the tag DRYRUN_TAG, within DRYRUN_TIMEOUT_S; the
 # phase's limit in seconds
 DIST_TIMING_REPS = 5
-# (arch, shape, mesh, policy): cells whose step DTensor propagates on the
-# card's torch (2.11: the tp policy fails every cell but zamba2's
-# long_500k there; ROADMAP.md section C)
+# (arch, shape, mesh, policy): cells whose step DTensor propagated on the
+# card's torch (2.11) before the dry run resharded where it refuses; then
+# DRYRUN_RESHARD_CELLS, a cell for each class of DTensor's tp refusals
+# there (the class it stands for; zamba2's tp cells of its class take
+# 105-377 s at 8 processes, so its cp train cell, which the same rule
+# refuses, stands in: 83-92 s), each of which must go through after at
+# least one reshard (launch/reshard.py) whose collectives its record
+# counts
 DRYRUN_CELLS = (("musicgen-large", "train_4k", "single", "fsdp"),
                 ("moonshot-v1-16b-a3b", "prefill_32k", "single", "fsdp"),
                 ("zamba2-1.2b", "long_500k", "single", "tp"),
                 ("musicgen-large", "prefill_32k", "multi", "zero3"))
+DRYRUN_RESHARD_CELLS = {
+    ("qwen2-0.5b", "decode_32k", "single", "tp"):
+        "a view splitting a sharded dim into heads",
+    ("musicgen-large", "decode_32k", "single", "tp"):
+        "a flatten of a sharded dim",
+    ("llama3.2-3b", "decode_32k", "multi", "tp"):
+        "aten.index on the 3-D mesh",
+    ("zamba2-1.2b", "train_4k", "single", "cp"):
+        "the pad's rule off the mesh (the redistribute planner's "
+        "IndexError)"}
+DRYRUN_ALL = DRYRUN_CELLS + tuple(DRYRUN_RESHARD_CELLS)
 DRYRUN_TAG, DRYRUN_TIMEOUT_S = "chip_smoke", 120.0
 DIST_PHASE_S = 150.0
 TRUNK_W8 = (64, 192)         # wq | wk | wm
@@ -4259,8 +4291,8 @@ def run_lm_train_full(torch, dev, ident):
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         launches.update(counts)
         cfg, log = args._cfg, {s: (f, t) for s, f, t in args._log}
-        require(sorted(log) == [0, 10, 20, n - 1], f"logged steps "
-                                                   f"{sorted(log)}")
+        require(sorted(log) == sorted({*range(0, n, 10), n - 1}),
+                f"logged steps {sorted(log)}")
         ms = (log[n - 1][1] - log[10][1]) / (n - 11) * 1e3
         mgr = CheckpointManager(f"{root}/qat")
         require(mgr.all_steps() == [n - 1], f"checkpoints {mgr.all_steps()}")
@@ -4295,6 +4327,7 @@ def run_lm_train_full(torch, dev, ident):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
         it.close()
         step = steps.make_train_step(cfg, opt)
+        t_step = time.perf_counter()
         wall = host_ms(torch, lambda: step(args._params, state, batch), 3)
         s_bytes, s_ops, _ = train_work(torch, cfg, B, S, False)
         s_ms, s_by = bound(s_bytes, s_ops, BF16_OPS_PER_S)
@@ -4302,10 +4335,13 @@ def run_lm_train_full(torch, dev, ident):
               f"of 3, host clock), bound {s_ms:.3f} ms ({s_by})")
         profile_prefill(torch, lambda: step(args._params, state, batch),
                         wall, "make_train_step call")
+        print(f"  the step timed and profiled in "
+              f"{time.perf_counter() - t_step:.1f} s")
         del args, state, batch, step
         torch.cuda.empty_cache()
         # beside it, the plain step
         m = LM_PLAIN_STEPS
+        t_plain = time.perf_counter()
         args, counts = launcher_run(torch, [
             "--arch", "qwen2-0.5b", "--steps", str(m), "--batch", str(B),
             "--seq", str(S), "--ckpt-dir", f"{root}/plain"], "plain")
@@ -4317,10 +4353,39 @@ def run_lm_train_full(torch, dev, ident):
               f"{m} steps: losses " + ", ".join(
                   f"{s}: {f:.4f}" for s, (f, _) in sorted(log.items()))
               + f"; {p_ms:.3f} ms per step (steps 1 to {m - 1}), "
-              f"{B * S / p_ms * 1e3:.0f} tokens/s; launches 0 [{ident}]")
+              f"{B * S / p_ms * 1e3:.0f} tokens/s; the run "
+              f"{time.perf_counter() - t_plain:.1f} s with its init and "
+              f"checkpoint; launches 0 [{ident}]")
         del args
         torch.cuda.empty_cache()
     return launches
+
+
+@contextlib.contextmanager
+def kept_heap():
+    """Inside the block, glibc's malloc serves every allocation from its
+    heap (``M_MMAP_MAX`` 0) and keeps what is freed there
+    (``M_TRIM_THRESHOLD`` at its largest), so a freed tensor's pages serve
+    the next one instead of being unmapped and faulted in afresh; after
+    it, glibc's defaults again and the free pages returned
+    (``malloc_trim``). Results are the same bit for bit; elsewhere than
+    glibc it does nothing."""
+    import ctypes
+    try:
+        libc = ctypes.CDLL("libc.so.6")
+        mallopt, trim = libc.mallopt, libc.malloc_trim
+    except (OSError, AttributeError):
+        yield
+        return
+    m_trim_threshold, m_mmap_max = -1, -4
+    mallopt(m_mmap_max, 0)
+    mallopt(m_trim_threshold, 2 ** 31 - 1)
+    try:
+        yield
+    finally:
+        mallopt(m_mmap_max, 65536)               # glibc's DEFAULT_MMAP_MAX
+        mallopt(m_trim_threshold, 128 * 1024)    # DEFAULT_TRIM_THRESHOLD
+        trim(0)
 
 
 def run_lm_train_gap(torch, dev, ident):
@@ -4817,7 +4882,7 @@ def start_dryruns():
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     procs = []
-    for arch, shape, mesh, policy in DRYRUN_CELLS:
+    for arch, shape, mesh, policy in DRYRUN_ALL:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                arch, "--shape", shape, "--mesh", mesh, "--policy", policy,
                "--tag", DRYRUN_TAG]
@@ -4829,8 +4894,10 @@ def start_dryruns():
 
 def finish_dryruns(procs, ident):
     """Phase 13 (c): wait for every dry-run process (killing any past
-    DRYRUN_TIMEOUT_S), then gate and print each cell's record."""
-    from repro_torch.launch.dryrun import cell_path
+    DRYRUN_TIMEOUT_S), then gate and print each cell's record and its
+    reshards."""
+    from repro_torch.launch.dryrun import cell_path, reshards_path
+    from repro_torch.launch.reshard import reshard_totals
     deadline = time.monotonic() + DRYRUN_TIMEOUT_S
     outs = []
     try:
@@ -4857,14 +4924,30 @@ def finish_dryruns(procs, ident):
                 f"{'written' if path.exists() else 'missing'}: "
                 f"{out.strip()[-1500:]}")
         rec = json.loads(path.read_text())
+        require("error" not in rec, f"dry run {arch} x {shape} x {mesh}: "
+                                    f"{rec.get('error')}")
         require(set(rec) == keys and set(rec["memory"]) == mem_keys,
                 f"dry run {arch} x {shape} x {mesh}: keys "
                 f"{sorted(set(rec) ^ keys)} / "
                 f"{sorted(set(rec['memory']) ^ mem_keys)} differ from the "
                 "JAX record's")
+        n_rs, rs_bytes, rs_counts = reshard_totals(json.loads(Path(
+            reshards_path(arch, shape, mesh, DRYRUN_TAG)).read_text()))
+        refusal = DRYRUN_RESHARD_CELLS.get((arch, shape, mesh, policy))
+        if refusal is not None:
+            require(n_rs >= 1, f"dry run {arch} x {shape} x {mesh} "
+                               f"({refusal}): no reshard")
+            require(all(rs_bytes[k] <= rec["collective_bytes"][k]
+                        and rs_counts[k] <= rec["collective_counts"][k]
+                        for k in rs_bytes),
+                    f"dry run {arch} x {shape} x {mesh}: reshards "
+                    f"{rs_bytes} x{rs_counts} not inside its collectives "
+                    f"{rec['collective_bytes']}")
         n = rec["n_devices"]
         coll = ", ".join(f"{k} {v:.4g} B x{rec['collective_counts'][k]}"
                          for k, v in rec["collective_bytes"].items() if v)
+        resh = ", ".join(f"{k} {v:.4g} B x{rs_counts[k]}"
+                         for k, v in rs_bytes.items())
         print(f"  {arch} x {shape} x {mesh}, {policy} ({n} ranks, "
               f"{rec['kind']}, "
               f"B={rec['global_batch']}, S={rec['seq_len']}): per device "
@@ -4874,7 +4957,10 @@ def finish_dryruns(procs, ident):
               f"FLOPs {rec['flops']:.4g} against analytic_flops / {n} = "
               f"{rec['analytic_flops'] / n:.4g} (ratio "
               f"{rec['flops'] * n / rec['analytic_flops']:.3f}); "
-              f"collectives per device: {coll or 'none'}; placement "
+              f"collectives per device: {coll or 'none'}; "
+              f"{n_rs} reshards"
+              + (f" (class: {refusal})" if refusal else "")
+              + f": {resh or 'none'}; placement "
               f"{rec['lower_s']} s, step {rec['compile_s']} s; keys = the "
               f"JAX record's [host of {ident}]")
 
@@ -4992,7 +5078,7 @@ def run_distribution(torch, dev, bounds):
         print(f"  {n} leaves restored onto their placements, every digest "
               "verified, equal to the saved parameters")
         print(f"  (c) the dry run at full width, one process per cell "
-              f"({len(DRYRUN_CELLS)} together)")
+              f"({len(DRYRUN_ALL)} together)")
     finally:
         finish_dryruns(procs, ident)
     took = time.perf_counter() - t_phase
@@ -5096,7 +5182,8 @@ def main() -> int:
           f"width and depth (B={LM_TRAIN_BATCH}, S={LM_TRAIN_SEQ}, bf16, "
           f"{LM_TRAIN_STEPS} steps qat_w4a8 + ef8, {LM_PLAIN_STEPS} plain); "
           "one step card against CPU; kill and resume")
-    lm_train = run_lm_train(torch, dev)
+    with kept_heap():
+        lm_train = run_lm_train(torch, dev)
     torch.cuda.empty_cache()
     print("phase 12: the MoE, Mamba2-hybrid and xLSTM families at their "
           f"published widths ({', '.join(FAM_ARCHS)}; moonshot one layer "
@@ -5106,7 +5193,7 @@ def main() -> int:
     print("phase 13: the distribution layer: the train step on the local "
           "(1, 1) NCCL mesh against the plain step, a checkpoint restored "
           "onto the mesh, the dry run at full width "
-          f"({', '.join(' x '.join(c) for c in DRYRUN_CELLS)})")
+          f"({', '.join(' x '.join(c) for c in DRYRUN_ALL)})")
     distribution = run_distribution(torch, dev, lm_train["bounds"])
     for row in rows:
         if row["name"] == "mddq_encode_kernel":

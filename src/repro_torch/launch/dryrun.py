@@ -31,9 +31,15 @@ beyond the arguments and ``peak_bytes`` its peak (-1 where it fails);
 ``flops`` the counted FLOPs per device; ``bytes_accessed`` -1 (PyTorch
 counts none); ``lower_s`` the placement's seconds and ``compile_s`` the
 step's; the ``analytic_*`` fields, ``model_flops`` and the parameter
-counts from ``launch/costs.py``. A cell whose step DTensor cannot
-propagate still writes its record, with ``"error"``: the exception's
-class and first line. The CLI then prints ``FAIL`` and exits 1.
+counts from ``launch/costs.py``. Where DTensor refuses an op that GSPMD
+would reshard past, the step runs on after the smallest reshard to
+``Replicate`` that cures it (``launch/reshard.ReshardMode``, entered
+innermost, so the counters above charge its collectives): the record
+keeps the reference's keys, and the CLI writes the reshard log beside
+it, ``<arch>__<shape>__<mesh>[__<tag>].reshards.json``. A cell whose
+step fails otherwise still writes its record, with ``"error"``: the
+exception's class and first line. The CLI then prints ``FAIL`` and
+exits 1.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch musicgen-large \\
@@ -67,6 +73,7 @@ from repro_torch.launch import costs as costs_lib
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.hlo_analysis import (CollectiveCounter,
                                              analyze_collectives)
+from repro_torch.launch.reshard import ReshardMode, reshard_totals
 from repro_torch.launch.steps import (abstract_cache, abstract_opt_state,
                                       abstract_params, input_specs,
                                       make_prefill_step, make_serve_step,
@@ -74,7 +81,8 @@ from repro_torch.launch.steps import (abstract_cache, abstract_opt_state,
 from repro_torch.models.lm.config import SHAPES
 from repro_torch.optim.adamw import AdamW, AdamWState
 
-__all__ = ["run_cell", "cell_path", "fake_world", "main"]
+__all__ = ["run_cell", "run_cell_and_reshards", "cell_path",
+           "reshards_path", "fake_world", "main"]
 
 ART = os.path.join(os.path.dirname(__file__), "..", "..", "..", "artifacts",
                    "dryrun_torch")
@@ -152,19 +160,28 @@ def _peak(tracker) -> int:
     return int(sum(v.get("Total", 0) for v in snap.values()))
 
 
-def run_cell(arch: str, shape_name: str, mesh_kind: str,
-             quant_mode: str = "none", kv_quant: bool = False,
-             kv_bits: int = 8, kv_replicate: int = 1,
-             attn_chunk_q: int = 1024, remat: bool = False,
-             act_sharding: str = "none", policy: str = "tp",
-             norm_f32: bool = True, grad_rs: bool = False,
-             mlstm_state_shard: bool = False, tag: str = "",
-             mesh_shape: Optional[Tuple[int, ...]] = None,
-             smoke: bool = False) -> dict:
-    """The cell's record (the module docstring). ``mesh_shape`` replaces
-    the production mesh's shape (its axes ``("data", "model")`` or
-    ``("pod", "data", "model")`` by length) and ``smoke`` the arch's
-    config by its smoke config, both for tests."""
+def run_cell(arch: str, shape_name: str, mesh_kind: str, **knobs) -> dict:
+    """The cell's record (the module docstring); ``knobs`` are
+    :func:`run_cell_and_reshards`'s keywords."""
+    return run_cell_and_reshards(arch, shape_name, mesh_kind, **knobs)[0]
+
+
+def run_cell_and_reshards(arch: str, shape_name: str, mesh_kind: str,
+                          quant_mode: str = "none", kv_quant: bool = False,
+                          kv_bits: int = 8, kv_replicate: int = 1,
+                          attn_chunk_q: int = 1024, remat: bool = False,
+                          act_sharding: str = "none", policy: str = "tp",
+                          norm_f32: bool = True, grad_rs: bool = False,
+                          mlstm_state_shard: bool = False, tag: str = "",
+                          mesh_shape: Optional[Tuple[int, ...]] = None,
+                          smoke: bool = False) -> Tuple[dict, list]:
+    """(The cell's record, the :class:`reshard.ReshardMode` log of its
+    step): the reshards are how the step got past DTensor's refusals, and
+    their collectives are inside the record's. The keywords are the
+    reference's ``run_cell``'s; ``mesh_shape`` replaces the production
+    mesh's shape (its axes ``("data", "model")`` or ``("pod", "data",
+    "model")`` by length) and ``smoke`` the arch's config by its smoke
+    config, both for tests."""
     cell = next(s for s in SHAPES if s.shape_name == shape_name)
     knobs = dict(quant_mode=quant_mode, kv_quant=kv_quant, kv_bits=kv_bits,
                  kv_replicate=kv_replicate, attn_chunk_q=attn_chunk_q,
@@ -193,18 +210,21 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
         "param_count": base.param_count(),
         "active_param_count": base.active_param_count(),
     }
+    coll = CollectiveCounter()
+    reshards = ReshardMode(coll)
     try:
         with fake_world(shape, names) as mesh:
             _run_step(rec, cfg, cell, mesh, policy, grad_rs,
-                      mlstm_state_shard)
+                      mlstm_state_shard, coll, reshards)
     except Exception as exc:        # the record says why; the CLI fails
         traceback.print_exc()
         lines = str(exc).strip().splitlines()
         rec["error"] = f"{type(exc).__name__}: {lines[0] if lines else ''}"
-    return rec
+    return rec, reshards.log
 
 
-def _run_step(rec, cfg, cell, mesh, policy, grad_rs, mlstm_state_shard):
+def _run_step(rec, cfg, cell, mesh, policy, grad_rs, mlstm_state_shard,
+              coll, reshards):
     t0 = time.monotonic()
     params = abstract_params(cfg)
     p_specs = shd.param_specs(params, cfg, mesh, policy)
@@ -235,7 +255,7 @@ def _run_step(rec, cfg, cell, mesh, policy, grad_rs, mlstm_state_shard):
                 batch.get("tokens", batch.get("embeds")), cell.seq_len - 1)
     rec["lower_s"] = round(time.monotonic() - t0, 2)
     arg_bytes = _local_bytes(args)
-    coll, flops, tracker = CollectiveCounter(), _LocalFlops(), MemTracker()
+    flops, tracker = _LocalFlops(), MemTracker()
     t1 = time.monotonic()
     with contextlib.ExitStack() as stack:
         stack.enter_context(implicit_replication())
@@ -247,6 +267,7 @@ def _run_step(rec, cfg, cell, mesh, policy, grad_rs, mlstm_state_shard):
             tracker = None
         stack.enter_context(coll)
         stack.enter_context(flops)
+        stack.enter_context(reshards)       # innermost: the others see it
         out = step(*args)
     rec["compile_s"] = round(time.monotonic() - t1, 2)
     peak = _peak(tracker) if tracker is not None else -1
@@ -264,6 +285,12 @@ def _run_step(rec, cfg, cell, mesh, policy, grad_rs, mlstm_state_shard):
 def cell_path(arch, shape, mesh_kind, tag=""):
     name = f"{arch}__{shape}__{mesh_kind}" + (f"__{tag}" if tag else "")
     return os.path.join(ART, name + ".json")
+
+
+def reshards_path(arch, shape, mesh_kind, tag=""):
+    """The reshard log beside the cell's record."""
+    return cell_path(arch, shape, mesh_kind, tag)[:-len(".json")] + \
+        ".reshards.json"
 
 
 def main(argv=None):
@@ -308,17 +335,14 @@ def main(argv=None):
             print(f"[dryrun] {arch} x {shape} x {mk} "
                   f"quant={args.quant} kv={args.kv_quant}", flush=True)
             try:
-                rec = run_cell(arch, shape, mk, quant_mode=args.quant,
-                               kv_quant=args.kv_quant, kv_bits=args.kv_bits,
-                               kv_replicate=args.kv_replicate,
-                               remat=args.remat,
-                               attn_chunk_q=args.attn_chunk_q,
-                               act_sharding=args.act_sharding,
-                               policy=args.policy,
-                               norm_f32=not args.norm_bf16,
-                               grad_rs=args.grad_rs,
-                               mlstm_state_shard=args.mlstm_state_shard,
-                               tag=args.tag)
+                rec, log = run_cell_and_reshards(
+                    arch, shape, mk, quant_mode=args.quant,
+                    kv_quant=args.kv_quant, kv_bits=args.kv_bits,
+                    kv_replicate=args.kv_replicate, remat=args.remat,
+                    attn_chunk_q=args.attn_chunk_q,
+                    act_sharding=args.act_sharding, policy=args.policy,
+                    norm_f32=not args.norm_bf16, grad_rs=args.grad_rs,
+                    mlstm_state_shard=args.mlstm_state_shard, tag=args.tag)
             except Exception as e:     # a fault outside the step itself
                 failures += 1
                 print(f"  FAIL: {type(e).__name__}: {e}", flush=True)
@@ -326,6 +350,9 @@ def main(argv=None):
                 continue
             with open(path, "w") as f:
                 json.dump(rec, f, indent=2)
+            with open(reshards_path(arch, shape, mk, args.tag), "w") as f:
+                json.dump(log, f, indent=2)
+            n_rs, rs_bytes, _ = reshard_totals(log)
             if "error" in rec:
                 failures += 1
                 print(f"  FAIL: {rec['error']}", flush=True)
@@ -333,6 +360,7 @@ def main(argv=None):
             print(f"  ok: flops={rec['flops']:.3e} "
                   f"bytes={rec['bytes_accessed']:.3e} "
                   f"coll={sum(rec['collective_bytes'].values()):.3e} "
+                  f"reshards={n_rs} ({sum(rs_bytes.values()):.3e} B) "
                   f"compile={rec['compile_s']}s", flush=True)
     sys.exit(1 if failures else 0)
 

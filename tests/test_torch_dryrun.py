@@ -7,9 +7,12 @@ the model axis. Each record has the keys of the JAX ``run_cell``'s record
 imported), its argument bytes are the sum of the local shards' bytes of
 the step's arguments (computed here from the spec trees), its analytic
 fields equal the JAX ``costs`` on the JAX smoke config, and it counted
-FLOPs and collectives. A cell DTensor cannot propagate (qwen2's smoke
-config: 7 heads over a model axis of 2) still returns its record, with
-``"error"``. ``run_cell`` opens and destroys its own fake process group.
+FLOPs and collectives. A cell whose q/k/v view DTensor refuses (qwen2's
+smoke config: 7 heads over a model axis of 2) now runs to its record
+after a reshard of that view, logged beside the record and inside its
+collectives; a step that fails for any other reason still returns its
+record, with ``"error"``. ``run_cell`` opens and destroys its own fake
+process group.
 """
 import ast
 import math
@@ -26,6 +29,7 @@ from repro_torch import configs, tree
 from repro_torch.launch import dryrun
 from repro_torch.launch import sharding as shd
 from repro_torch.launch import steps
+from repro_torch.launch.reshard import reshard_totals
 from repro_torch.models.lm.config import SHAPES
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -114,10 +118,68 @@ def test_run_cell_writes_the_reference_record(shape):
     assert rec["memory"]["peak_bytes"] >= rec["memory"]["argument_bytes"]
 
 
-def test_a_cell_dtensor_cannot_propagate_keeps_its_record():
-    rec = dryrun.run_cell("qwen2-0.5b", "prefill_32k", "single",
-                          mesh_shape=MESH, smoke=True)
+def test_a_cell_dtensor_refuses_runs_after_a_logged_reshard():
+    rec, reshards = dryrun.run_cell_and_reshards(
+        "qwen2-0.5b", "prefill_32k", "single", mesh_shape=MESH, smoke=True)
     assert not dist.is_initialized()
-    assert rec["error"].startswith("RuntimeError: ")
-    assert "unevenly" in rec["error"]
+    assert "error" not in rec, rec.get("error")
+    keys, mem_keys = _jax_record_keys()
+    assert set(rec) == keys and set(rec["memory"]) == mem_keys
+    assert rec["flops"] > 0
+    assert any(e["op"] == "aten.view.default" for e in reshards)
+    n, nbytes, counts = reshard_totals(reshards)
+    assert n >= 1 and sum(nbytes.values()) > 0
+    for kind in nbytes:
+        assert rec["collective_bytes"][kind] >= nbytes[kind]
+        assert rec["collective_counts"][kind] >= counts[kind]
+
+
+def test_a_step_that_fails_otherwise_keeps_its_error(monkeypatch):
+    def broken(cfg):
+        def step(params, batch):
+            raise ValueError("not DTensor's refusal")
+        return step
+    monkeypatch.setattr(dryrun, "make_prefill_step", broken)
+    rec, reshards = dryrun.run_cell_and_reshards(
+        "qwen2-0.5b", "prefill_32k", "single", mesh_shape=MESH, smoke=True)
+    assert not dist.is_initialized()
+    assert rec["error"] == "ValueError: not DTensor's refusal"
+    assert reshards == []
     assert rec["flops"] == -1 and rec["analytic_flops"] > 0
+
+
+@pytest.mark.parametrize("mesh_kind", ["single", "multi"])
+def test_meta_shards_have_dtensors_local_shape(mesh_kind):
+    """``sharding.local_shape`` (the shape of each meta shard the dry run
+    builds) is DTensor's own local shape on rank 0 for every leaf of every
+    cell's parameters, batch and decode cache, under every policy, on the
+    production mesh: no spec the rules give splits a dim unevenly."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, names = dryrun._MESHES[mesh_kind]
+    n = 0
+    with dryrun.fake_world(shape, names) as mesh:
+        for arch in configs.ARCH_IDS:
+            cfg = configs.get_config(arch)
+            params = steps.abstract_params(cfg)
+            trees = []
+            for policy in ("tp", "fsdp", "zero3", "cp"):
+                trees.append((params, shd.param_specs(params, cfg, mesh,
+                                                      policy)))
+                for cell in configs.shapes_for(arch):
+                    trees.append((steps.input_specs(cfg, cell),
+                                  shd.batch_specs(cfg, cell, mesh, policy)))
+            for cell in configs.shapes_for(arch):
+                if cell.kind == "decode":
+                    cache = steps.abstract_cache(cfg, cell)
+                    trees.append((cache, shd.cache_specs(cache, cfg, cell,
+                                                         mesh)))
+            for values, specs in trees:
+                flat = dict(shd.spec_items(specs))
+                for k, v in tree.items(values):
+                    want, _ = compute_local_shape_and_global_offset(
+                        v.shape, mesh, shd.placements(flat[k], mesh))
+                    assert shd.local_shape(v.shape, flat[k], mesh) == \
+                        tuple(want), (arch, k, flat[k])
+                    n += 1
+    assert not dist.is_initialized() and n > 500
