@@ -327,8 +327,16 @@
    logs at least one reshard, and its reshards' collective bytes and
    counts lie inside its record's. Prints each record's per-device
    argument bytes, counted FLOPs against ``analytic_flops`` per device,
-   collective bytes by kind and its reshards. The phase within 150 s;
-   every number beside the card's name and power limit.
+   collective bytes by kind and its reshards. (d) While (c) runs, in
+   this process on the card's torch: the dry run's scan charging
+   (``models/lm/scan.py``) against the full loop on xlstm's smoke config
+   at S = 32 on a 2 x 2 fake mesh under tp, prefill_32k and train_4k
+   (``tests/test_torch_scan.py``'s check): the records equal key for key
+   on FLOPs, collective bytes and counts, argument and output bytes and
+   the reshard totals, temp and peak bytes within one sLSTM step's (32
+   B d); prints each pass's steady step k, S and the steps charged. The
+   phase within 150 s; every number beside the card's name and power
+   limit.
 
 Phase 2 also holds the act-quant kernel bit for bit (float32 and bf16),
 its KV entry (the decode's whole int8 KV write) byte for byte over a
@@ -523,6 +531,11 @@ DRYRUN_RESHARD_CELLS = {
         "IndexError)"}
 DRYRUN_ALL = DRYRUN_CELLS + tuple(DRYRUN_RESHARD_CELLS)
 DRYRUN_TAG, DRYRUN_TIMEOUT_S = "chip_smoke", 120.0
+# (d): the scan's charging against the full loop, in this process: xlstm's
+# smoke config at S = SCAN_SEQ (its ssm_chunk) on a SCAN_MESH fake mesh,
+# one prefill and one train cell
+SCAN_CELLS = (("prefill_32k", "tp"), ("train_4k", "tp"))
+SCAN_SEQ, SCAN_MESH = 32, (2, 2)
 DIST_PHASE_S = 150.0
 TRUNK_W8 = (64, 192)         # wq | wk | wm
 TRUNK_W4 = (64, 32)          # wa | wb
@@ -4965,6 +4978,52 @@ def finish_dryruns(procs, ident):
               f"JAX record's [host of {ident}]")
 
 
+def check_scan_charging(ident):
+    """Phase 13 (d): each SCAN_CELLS cell's dry-run record with the scan
+    charging equals the full loop's (the module docstring)."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.reshard import reshard_totals
+    cfg = configs.get_smoke_config("xlstm-1.3b")
+    for shape, policy in SCAN_CELLS:
+        got = {}
+        for full in (False, True):
+            notes, t0 = [], time.perf_counter()
+            rec, log = dryrun.run_cell_and_reshards(
+                "xlstm-1.3b", shape, "single", mesh_shape=SCAN_MESH,
+                smoke=True, policy=policy, seq_len=SCAN_SEQ,
+                full_loop=full, scan_log=notes)
+            require("error" not in rec, f"scan check {shape} {policy} "
+                                        f"(full loop {full}): "
+                                        f"{rec.get('error')}")
+            got[full] = (rec, reshard_totals(log), notes,
+                         time.perf_counter() - t0)
+        (rec, rs, notes, took), (ref, ref_rs, _, ref_took) = (got[False],
+                                                              got[True])
+        tol = 32 * rec["global_batch"] * cfg.d_model
+        bad = [k for k in ("flops", "collective_bytes", "collective_counts")
+               if rec[k] != ref[k]]
+        bad += [k for k in ("argument_bytes", "output_bytes")
+                if rec["memory"][k] != ref["memory"][k]]
+        bad += [k for k in ("temp_bytes", "peak_bytes")
+                if abs(rec["memory"][k] - ref["memory"][k]) > tol]
+        bad += ["reshards"] if rs != ref_rs else []
+        require(not bad and all(n["charged"] > 0 for n in notes),
+                f"scan check {shape} {policy}: {bad} differ from the full "
+                f"loop's ({ {k: (rec.get(k), ref.get(k)) for k in bad} }), "
+                f"passes {notes}")
+        passes = "; ".join(f"{n['pass']} k {n['steady_at']}, ran "
+                           f"{n['ran']}, charged {n['charged']} of S "
+                           f"{n['length']}" for n in notes)
+        print(f"  (d) xlstm smoke {shape} {policy} on {SCAN_MESH}, S "
+              f"{SCAN_SEQ}: {passes}; FLOPs {rec['flops']:.6g}, collectives "
+              f"{sum(rec['collective_counts'].values())}, temp "
+              f"{rec['memory']['temp_bytes']} B (full loop "
+              f"{ref['memory']['temp_bytes']}, bound {tol}): equal to the "
+              f"full loop's; {took:.1f} s charged, {ref_took:.1f} s full "
+              f"[host of {ident}]")
+
+
 def run_distribution(torch, dev, bounds):
     """Phase 13 (the module docstring). ``bounds``: phase 11 (b)'s
     ``quant none`` bounds per leaf, (gradients, parameters after the
@@ -5078,7 +5137,10 @@ def run_distribution(torch, dev, bounds):
         print(f"  {n} leaves restored onto their placements, every digest "
               "verified, equal to the saved parameters")
         print(f"  (c) the dry run at full width, one process per cell "
-              f"({len(DRYRUN_ALL)} together)")
+              f"({len(DRYRUN_ALL)} together), and beside it (d)")
+        if torch.distributed.is_initialized():  # (d) opens a fake one
+            torch.distributed.destroy_process_group()
+        check_scan_charging(ident)
     finally:
         finish_dryruns(procs, ident)
     took = time.perf_counter() - t_phase

@@ -41,6 +41,17 @@ step fails otherwise still writes its record, with ``"error"``: the
 exception's class and first line. The CLI then prints ``FAIL`` and
 exits 1.
 
+The sLSTM's loop over time (``models/lm/scan.py``, the reference's
+``lax.scan``) runs its steps only until two consecutive ones agree in
+everything the step sees and counts (shapes, dtypes and placements in
+and out, FLOPs, collectives, reshards, bytes left alive), then charges
+the remaining steps with that step's counts, forward and backward: XLA
+compiles a scan body once and the reference multiplies its collectives
+by the trip count, and on meta shards the port's charge is exact. The
+FLOPs keep the port's convention (every step counted; XLA's
+``cost_analysis`` counts the body once). The CLI prints, after its
+``ok:`` line, the steps the scans ran and charged.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch musicgen-large \\
       --shape train_4k --mesh single [--quant serve_w8a8] [--kv-quant]
@@ -51,6 +62,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -61,6 +73,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
+from torch._guards import active_fake_mode
 from torch.distributed._tools.mem_tracker import MemTracker
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor
@@ -78,11 +91,12 @@ from repro_torch.launch.steps import (abstract_cache, abstract_opt_state,
                                       abstract_params, input_specs,
                                       make_prefill_step, make_serve_step,
                                       make_train_step)
+from repro_torch.models.lm import scan as scan_lib
 from repro_torch.models.lm.config import SHAPES
 from repro_torch.optim.adamw import AdamW, AdamWState
 
 __all__ = ["run_cell", "run_cell_and_reshards", "cell_path",
-           "reshards_path", "fake_world", "main"]
+           "reshards_path", "fake_world", "scan_line", "main"]
 
 ART = os.path.join(os.path.dirname(__file__), "..", "..", "..", "artifacts",
                    "dryrun_torch")
@@ -111,12 +125,21 @@ def fake_world(shape: Tuple[int, ...], names: Tuple[str, ...]):
 class _LocalFlops(TorchDispatchMode):
     """FLOPs of the ops dispatched on local shards, by
     ``FlopCounterMode``'s formulas (2 per multiply-add): a DTensor op is
-    passed to its subclass dispatch and its local ops come back here."""
+    passed to its subclass dispatch and its local ops come back here.
+    DTensor's sharding propagation runs an op it has not seen under a
+    fake mode of its own to learn its output's shape; those runs are not
+    the step's, and are not counted (as ``MemTracker`` does not track
+    them), so a count does not depend on what ran before in the
+    process."""
 
     def __init__(self):
         super().__init__()
         self.registry = FlopCounterMode(display=False).flop_registry
         self.flops = 0
+
+    def __enter__(self):
+        self._fake_on_entry = active_fake_mode()
+        return super().__enter__()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -124,9 +147,69 @@ class _LocalFlops(TorchDispatchMode):
             return NotImplemented
         out = func(*args, **kwargs)
         formula = self.registry.get(func._overloadpacket)
-        if formula is not None:
+        if formula is not None and active_fake_mode() is self._fake_on_entry:
             self.flops += int(formula(*args, **kwargs, out_val=out))
         return out
+
+
+class _MemTracker(MemTracker):
+    """``MemTracker`` that does not track what DTensor's sharding
+    propagation allocates under its own fake mode for an op it has not
+    seen: those tensors are not the step's. torch 2.13's tracker skips
+    them itself; 2.11's tracked them, so a cell's peak depended on what
+    had run before it in the process."""
+
+    def __enter__(self):
+        self._fake_at_entry = active_fake_mode()
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if (active_fake_mode() is not self._fake_at_entry
+                and not any(issubclass(t, DTensor) for t in types)):
+            return func(*args, **(kwargs or {}))
+        return super().__torch_dispatch__(func, types, args, kwargs)
+
+
+class _Meter:
+    """What the step's scans (``models/lm/scan.py``) read and charge: the
+    local FLOPs, the collective counter, the reshard log and the memory
+    tracker's live bytes. ``scans`` gets one note per pass of each
+    scan."""
+
+    def __init__(self, flops, coll, reshards, tracker):
+        self.flops, self.coll, self.reshards = flops, coll, reshards
+        self.tracker = tracker
+        self.scans = []
+
+    def mark(self):
+        return self.flops.flops, self.coll.mark(), self.reshards.mark()
+
+    def since(self, mark) -> tuple:
+        return (self.flops.flops - mark[0], self.coll.since(mark[1]),
+                self.reshards.since(mark[2]))
+
+    def charge(self, counts, times: int):
+        flops, coll, reshards = counts
+        self.flops.flops += times * flops
+        self.coll.charge(coll, times)
+        self.reshards.charge(reshards, times)
+
+    def rewind(self, mark):
+        self.flops.flops = mark[0]
+        self.coll.rewind(mark[1])
+        self.reshards.rewind(mark[2])
+
+    def live_bytes(self) -> int:
+        """The tracker's bytes alive, after a cyclic collection: a shard
+        that only a reference cycle holds is not the step's."""
+        if self.tracker is None:
+            return 0
+        gc.collect()
+        snap = self.tracker.get_tracker_snapshot("current")
+        return int(sum(v.get("Total", 0) for v in snap.values()))
+
+    def note(self, entry: dict):
+        self.scans.append(entry)
 
 
 def _on_mesh(x: torch.Tensor, spec, mesh) -> DTensor:
@@ -174,15 +257,23 @@ def run_cell_and_reshards(arch: str, shape_name: str, mesh_kind: str,
                           norm_f32: bool = True, grad_rs: bool = False,
                           mlstm_state_shard: bool = False, tag: str = "",
                           mesh_shape: Optional[Tuple[int, ...]] = None,
-                          smoke: bool = False) -> Tuple[dict, list]:
+                          smoke: bool = False, seq_len: Optional[int] = None,
+                          full_loop: bool = False,
+                          scan_log: Optional[list] = None
+                          ) -> Tuple[dict, list]:
     """(The cell's record, the :class:`reshard.ReshardMode` log of its
     step): the reshards are how the step got past DTensor's refusals, and
     their collectives are inside the record's. The keywords are the
     reference's ``run_cell``'s; ``mesh_shape`` replaces the production
     mesh's shape (its axes ``("data", "model")`` or ``("pod", "data",
-    "model")`` by length) and ``smoke`` the arch's config by its smoke
-    config, both for tests."""
+    "model")`` by length), ``smoke`` the arch's config by its smoke
+    config, ``seq_len`` the cell's sequence length, and ``full_loop``
+    runs every step of the scans (no charging), all for tests.
+    ``scan_log``, a list, receives the scans' notes
+    (``models/lm/scan.py``)."""
     cell = next(s for s in SHAPES if s.shape_name == shape_name)
+    if seq_len is not None:
+        cell = dataclasses.replace(cell, seq_len=seq_len)
     knobs = dict(quant_mode=quant_mode, kv_quant=kv_quant, kv_bits=kv_bits,
                  kv_replicate=kv_replicate, attn_chunk_q=attn_chunk_q,
                  remat=remat, act_sharding=act_sharding, norm_f32=norm_f32)
@@ -214,8 +305,10 @@ def run_cell_and_reshards(arch: str, shape_name: str, mesh_kind: str,
     reshards = ReshardMode(coll)
     try:
         with fake_world(shape, names) as mesh:
-            _run_step(rec, cfg, cell, mesh, policy, grad_rs,
-                      mlstm_state_shard, coll, reshards)
+            scans = _run_step(rec, cfg, cell, mesh, policy, grad_rs,
+                              mlstm_state_shard, coll, reshards, full_loop)
+            if scan_log is not None:
+                scan_log.extend(scans)
     except Exception as exc:        # the record says why; the CLI fails
         traceback.print_exc()
         lines = str(exc).strip().splitlines()
@@ -224,7 +317,8 @@ def run_cell_and_reshards(arch: str, shape_name: str, mesh_kind: str,
 
 
 def _run_step(rec, cfg, cell, mesh, policy, grad_rs, mlstm_state_shard,
-              coll, reshards):
+              coll, reshards, full_loop=False):
+    """Runs the cell's step into ``rec``; returns the scans' notes."""
     t0 = time.monotonic()
     params = abstract_params(cfg)
     p_specs = shd.param_specs(params, cfg, mesh, policy)
@@ -255,7 +349,7 @@ def _run_step(rec, cfg, cell, mesh, policy, grad_rs, mlstm_state_shard,
                 batch.get("tokens", batch.get("embeds")), cell.seq_len - 1)
     rec["lower_s"] = round(time.monotonic() - t0, 2)
     arg_bytes = _local_bytes(args)
-    flops, tracker = _LocalFlops(), MemTracker()
+    flops, tracker = _LocalFlops(), _MemTracker()
     t1 = time.monotonic()
     with contextlib.ExitStack() as stack:
         stack.enter_context(implicit_replication())
@@ -268,6 +362,9 @@ def _run_step(rec, cfg, cell, mesh, policy, grad_rs, mlstm_state_shard,
         stack.enter_context(coll)
         stack.enter_context(flops)
         stack.enter_context(reshards)       # innermost: the others see it
+        meter = _Meter(flops, coll, reshards, tracker)
+        if not full_loop:
+            stack.enter_context(scan_lib.charging(meter))
         out = step(*args)
     rec["compile_s"] = round(time.monotonic() - t1, 2)
     peak = _peak(tracker) if tracker is not None else -1
@@ -280,6 +377,22 @@ def _run_step(rec, cfg, cell, mesh, policy, grad_rs, mlstm_state_shard,
                    else -1,
                    "peak_bytes": peak},
         "collective_bytes": coll_bytes, "collective_counts": coll_counts})
+    return meter.scans
+
+
+def scan_line(scans) -> str:
+    """The CLI's line on the scans' notes (``models/lm/scan.py``):
+    passes, steps, steps run and charged, and the passes that found no
+    steady pair (``tools/dryrun_sweep`` reads it)."""
+    unsteady = sum(e["steady_at"] is None for e in scans)
+    line = (f"  scans: {len(scans)} passes, "
+            f"{sum(e['length'] for e in scans)} steps, ran "
+            f"{sum(e['ran'] for e in scans)}, charged "
+            f"{sum(e['charged'] for e in scans)}")
+    if unsteady:
+        line += (f"; {unsteady} passes found no steady pair in "
+                 f"{scan_lib.MAX_UNSTEADY} steps and ran their whole loop")
+    return line
 
 
 def cell_path(arch, shape, mesh_kind, tag=""):
@@ -334,6 +447,7 @@ def main(argv=None):
                 continue
             print(f"[dryrun] {arch} x {shape} x {mk} "
                   f"quant={args.quant} kv={args.kv_quant}", flush=True)
+            scans = []
             try:
                 rec, log = run_cell_and_reshards(
                     arch, shape, mk, quant_mode=args.quant,
@@ -342,7 +456,8 @@ def main(argv=None):
                     attn_chunk_q=args.attn_chunk_q,
                     act_sharding=args.act_sharding, policy=args.policy,
                     norm_f32=not args.norm_bf16, grad_rs=args.grad_rs,
-                    mlstm_state_shard=args.mlstm_state_shard, tag=args.tag)
+                    mlstm_state_shard=args.mlstm_state_shard, tag=args.tag,
+                    scan_log=scans)
             except Exception as e:     # a fault outside the step itself
                 failures += 1
                 print(f"  FAIL: {type(e).__name__}: {e}", flush=True)
@@ -362,6 +477,8 @@ def main(argv=None):
                   f"coll={sum(rec['collective_bytes'].values()):.3e} "
                   f"reshards={n_rs} ({sum(rs_bytes.values()):.3e} B) "
                   f"compile={rec['compile_s']}s", flush=True)
+            if scans:
+                print(scan_line(scans), flush=True)
     sys.exit(1 if failures else 0)
 
 

@@ -4,9 +4,12 @@
 The reference parses XLA's optimized HLO text and multiplies each
 while-loop body's collectives by its trip count, because XLA compiles a
 ``lax.scan`` body once. The port makes no HLO, so there is no text to
-walk; and PyTorch runs every loop iteration eagerly, so every collective
-a step issues is seen as it runs and no trip count needs multiplying.
-:class:`CollectiveCounter` is a ``TorchDispatchMode`` that records each
+walk; PyTorch runs a loop's iterations eagerly, and each collective a
+step issues is seen as it runs. The one exception is the port's own
+``models/lm/scan.py``: under the dry run it runs a loop's steps until
+two agree and charges the rest with the steady step's collectives
+(:meth:`CollectiveCounter.charge`), the reference's trip count made
+exact. :class:`CollectiveCounter` is a ``TorchDispatchMode`` that records each
 collective op as it is dispatched: the functional collectives DTensor
 issues when it redistributes (``_c10d_functional.all_reduce``,
 ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
@@ -76,13 +79,16 @@ def _kind(func) -> Tuple[str, bool]:
 class CollectiveCounter(TorchDispatchMode):
     """Records every collective dispatched while it is active:
     ``bytes[kind]`` and ``counts[kind]`` over :data:`COLLECTIVES`, and
-    ``ops``, the (op name, bytes) of each in order."""
+    ``ops``, the (op name, bytes) of each that ran, in order. Steps that a
+    scan charges (:meth:`charge`) add to ``bytes`` and ``counts`` only:
+    ``ops`` keeps the collectives that ran."""
 
     def __init__(self):
         super().__init__()
         self.bytes: Dict[str, int] = {k: 0 for k in COLLECTIVES}
         self.counts: Dict[str, int] = {k: 0 for k in COLLECTIVES}
         self.ops = []
+        self._kinds = []            # the kind of each entry of ops
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -95,7 +101,33 @@ class CollectiveCounter(TorchDispatchMode):
             self.bytes[kind] += n
             self.counts[kind] += 1
             self.ops.append((str(func), n))
+            self._kinds.append(kind)
         return out
+
+    def mark(self):
+        """A point to count from (:meth:`since`, :meth:`rewind`)."""
+        return len(self.ops), dict(self.bytes), dict(self.counts)
+
+    def since(self, mark) -> tuple:
+        """The collectives that ran since ``mark``: ((op, kind, bytes),
+        ...) in order."""
+        i = mark[0]
+        return tuple((name, kind, n) for (name, n), kind
+                     in zip(self.ops[i:], self._kinds[i:]))
+
+    def charge(self, ops, times: int):
+        """Charges the collectives ``ops`` (from :meth:`since`) ``times``
+        times more."""
+        for _, kind, n in ops:
+            self.bytes[kind] += times * n
+            self.counts[kind] += times
+
+    def rewind(self, mark):
+        """Takes back everything counted since ``mark``."""
+        i, nbytes, counts = mark
+        self.bytes.update(nbytes)
+        self.counts.update(counts)
+        del self.ops[i:], self._kinds[i:]
 
 
 def analyze_collectives(counter: CollectiveCounter

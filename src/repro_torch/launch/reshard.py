@@ -50,11 +50,15 @@ the dry run's counter of the whole step. An attempt that DTensor
 refuses, or whose output is dropped, takes whatever collectives it
 issued back out of that counter when the mode is given it: a deployment
 would not move them. Identical reshards (same op, argument and
-placements) share one entry with their number in ``n``.
+placements) share one entry with their number in ``n``; where the dry
+run's scan charges a step instead of running it
+(``models/lm/scan.py``), :meth:`ReshardMode.charge` adds the step's
+reshards to ``n``.
 """
 from __future__ import annotations
 
 import os
+import traceback
 from typing import Dict, List, Optional, Set, Tuple
 
 import torch
@@ -182,21 +186,49 @@ class ReshardMode(TorchDispatchMode):
                 raise RuntimeError(f"DTensor's rule for {func} places its "
                                    "output off its mesh")
             raise exc
+        _forget(exc)
         if _stale_mask(out):
             self._rewind(mark)
             out = self._reduce_masks(func, args, kwargs)
         return out
 
     def _mark(self):
-        c = self.counter
-        return None if c is None else (dict(c.bytes), dict(c.counts),
-                                       len(c.ops))
+        return None if self.counter is None else self.counter.mark()
 
     def _rewind(self, mark):
         if mark is not None:
-            self.counter.bytes.update(mark[0])
-            self.counter.counts.update(mark[1])
-            del self.counter.ops[mark[2]:]
+            self.counter.rewind(mark)
+
+    # the dry run's scans (models/lm/scan.py) count reshards through these
+
+    def mark(self):
+        """A point in the log to count from (:meth:`since`,
+        :meth:`rewind`)."""
+        return len(self.log), [e["n"] for e in self.log]
+
+    def since(self, mark) -> tuple:
+        """The reshards since ``mark``: ((entry's index in the log,
+        reshards), ...)."""
+        i, ns = mark
+        return tuple((j, e["n"] - (ns[j] if j < i else 0))
+                     for j, e in enumerate(self.log)
+                     if j >= i or e["n"] != ns[j])
+
+    def charge(self, reshards, times: int):
+        """Adds ``reshards`` (from :meth:`since`) ``times`` more times to
+        their entries' ``n``: a charged step's reshards."""
+        for j, n in reshards:
+            self.log[j]["n"] += times * n
+
+    def rewind(self, mark):
+        """Takes back the reshards logged since ``mark``."""
+        i, ns = mark
+        for e, n in zip(self.log, ns):
+            e["n"] = n
+        kept = {id(e) for e in self.log[:i]}
+        del self.log[i:]
+        self._index = {k: e for k, e in self._index.items()
+                       if id(e) in kept}
 
     def _attempt(self, func, args, kwargs):
         """(``func``'s output, None), or (_REFUSED, DTensor's exception,
@@ -231,9 +263,11 @@ class ReshardMode(TorchDispatchMode):
                 except Exception as err:
                     if not raised_by_dtensor(err):
                         raise
+                    _forget(err)
                     return _REFUSED
                 out, exc = self._attempt(func,
                                          *pytree.tree_unflatten(flat, spec))
+                _forget(exc)
                 if out is not _REFUSED:
                     return out
         # every argument replicated: where DTensor has no rule for the op
@@ -243,7 +277,8 @@ class ReshardMode(TorchDispatchMode):
                 and not written:
             try:
                 return _replicated(func, flat, spec)
-            except Exception:       # the caller re-raises DTensor's refusal
+            except Exception as err:  # the caller re-raises DTensor's
+                _forget(err)          # refusal
                 return _REFUSED
         return _REFUSED
 
@@ -287,6 +322,23 @@ class ReshardMode(TorchDispatchMode):
 
 
 _REFUSED = object()
+
+
+def _forget(exc: Optional[BaseException]):
+    """Drops the traceback of a refusal that is not raised (and of its
+    causes and contexts). Its frames hold the op's local shards, and
+    DTensor's hold cells that refer back to the exception: a cycle that
+    kept those shards alive, and counted by the dry run's memory tracker,
+    until the cyclic collector happened to run."""
+    seen, todo = set(), [exc]
+    while todo:
+        e = todo.pop()
+        if e is None or id(e) in seen:
+            continue
+        seen.add(id(e))
+        traceback.clear_frames(e.__traceback__)
+        e.__traceback__ = None
+        todo += [e.__cause__, e.__context__]
 
 
 def _replicated(func, flat, spec):

@@ -8,9 +8,10 @@ max(|n_t . q_t|, 1). The prefill runs ``ssm.chunked_linear_rnn`` with N
 [v, 1]); the decode keeps the normalizer beside the state, as the
 reference's cache does.
 
-The sLSTM's hidden state feeds its gates, so it runs step by step: a
-Python loop over time (the reference's ``lax.scan``), with the
-exponential gating's stabilizer ``m`` starting at -1e30.
+The sLSTM's hidden state feeds its gates, so it runs step by step:
+``scan.scan`` over time (the reference's ``lax.scan``; outside the dry
+run, a Python loop), with the exponential gating's stabilizer ``m``
+starting at -1e30.
 
 Serve modes: the reference's quantization policy leaves the mLSTM's
 input/forget gate projection ``b/wif`` float, and its ``qlinear`` cannot
@@ -29,6 +30,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.lm.layers import (dense_init, lead_shape,
                                           normal_init, qlinear, rmsnorm, silu,
                                           softplus)
+from repro_torch.models.lm.scan import scan
 from repro_torch.models.lm.ssm import chunked_linear_rnn, linear_rnn_step
 
 __all__ = ["mlstm_arrays", "slstm_arrays", "mlstm_forward",
@@ -187,17 +189,22 @@ def _slstm_state0(cfg, batch: int, dtype: torch.dtype, device):
             torch.full((batch, d), -1e30, dtype=f32, device=device))
 
 
+def _slstm_body(cfg):
+    def step(state, x_t, r, b):
+        state = _slstm_cell({"r": r, "b": b}, cfg, x_t, state)
+        return state, state[0]
+    return step
+
+
 def slstm_forward(params, x_res: torch.Tensor, cfg) -> torch.Tensor:
     """(B, S, d) -> (B, S, d), one cell step per position."""
     B, S, _ = x_res.shape
     mode = cfg.quant_mode
     x_in = qlinear(x_res, params["w_in"], mode)        # (B, S, 4d)
-    state = _slstm_state0(cfg, B, x_res.dtype, x_res.device)
-    hs = []
-    for t in range(S):
-        state = _slstm_cell(params, cfg, x_in[:, t], state)
-        hs.append(state[0])
-    h = rmsnorm(torch.stack(hs, dim=1), params["norm_w"])
+    _, hs = scan(_slstm_body(cfg),
+                 _slstm_state0(cfg, B, x_res.dtype, x_res.device), x_in,
+                 axis=1, consts=(params["r"], params["b"]))
+    h = rmsnorm(hs, params["norm_w"])
     return qlinear(h, params["down"], mode)
 
 

@@ -7,22 +7,31 @@ under the policy's tag (``artifacts/dryrun_torch/<arch>__<shape>__<mesh>
 __<policy>.json`` and ``.reshards.json``); ``--out`` gets copies of both,
 each cell's output, and ``summary.json``: per cell its exit code,
 seconds, error, the reshards (count and bytes), collective bytes, and
-counted FLOPs per device against ``analytic_flops / n_devices``; per
-policy the cells passed, and the reshards by op (count and bytes).
+counted FLOPs per device against ``analytic_flops / n_devices``, and the
+steps its scans ran and charged (``models/lm/scan.py``, read from the
+cell's ``scans:`` line); per policy the cells passed, and the reshards by
+op (count and bytes).
 
     PYTHONPATH=src python -m repro_torch.tools.dryrun_sweep \\
         --policies tp fsdp zero3 cp --out artifacts/dryrun_sweep
 
 ``--probe arch:shape:mesh:policy`` instead runs that one cell in this
-process for :data:`PROBE_S` seconds and prints the seconds per sLSTM cell
-step (``models.lm.xlstm._slstm_cell`` timed from its second call on),
-and the steps the whole cell runs; the cell is then stopped.
+process up to its first sLSTM block's steady step (its
+``models.lm.xlstm._slstm_cell`` call number :data:`STEADY_CALL`, which
+the scan runs for real), times that step :data:`PROBE_REPS` times
+each on the cell's DTensors under the dry run's dispatch modes, on the
+same DTensors under a bare ``ReshardMode`` alone (without which torch
+2.11 refuses the step), and on plain ``meta`` tensors of the global
+shapes with no mode, prints the three seconds per step, DTensor's
+dispatch with its reshards (the second less the third) and the counting
+modes' cost (the first less the second), and stops the cell.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -31,13 +40,15 @@ from pathlib import Path
 
 from repro_torch import configs
 from repro_torch.launch.dryrun import cell_path, reshards_path
-from repro_torch.launch.reshard import reshard_totals
+from repro_torch.launch.reshard import ReshardMode, reshard_totals
 
 __all__ = ["sweep_cells", "run_sweep", "probe_slstm", "main"]
 
 POLICIES = ("tp", "fsdp", "zero3", "cp")
 CELL_LIMIT_S = 900.0
-PROBE_S = 120.0
+# the probe times the scan's steady step (k = 2: the third call)
+# PROBE_REPS times each way
+STEADY_CALL, PROBE_REPS = 3, 20
 
 
 def sweep_cells(policies):
@@ -50,10 +61,25 @@ def sweep_cells(policies):
     return sorted(cells, key=lambda c: slow.get(c[:2], 2))
 
 
-def _summarise(cell, rc, seconds, timed_out):
+_SCANS = re.compile(r"scans: (\d+) passes, (\d+) steps, ran (\d+), "
+                    r"charged (\d+)(; (\d+) passes found no steady)?")
+
+
+def _scans(log: Path):
+    """The scans' steps from the ``scans:`` line of a cell's output
+    (``launch.dryrun.scan_line``), or None where it printed none."""
+    m = _SCANS.search(log.read_text()) if log.exists() else None
+    if m is None:
+        return None
+    return {"passes": int(m[1]), "steps": int(m[2]), "ran": int(m[3]),
+            "charged": int(m[4]), "unsteady": int(m[6] or 0)}
+
+
+def _summarise(cell, rc, seconds, timed_out, log=None):
     arch, shape, mesh, policy = cell
     row = {"arch": arch, "shape": shape, "mesh": mesh, "policy": policy,
-           "rc": rc, "seconds": round(seconds, 1), "timed_out": timed_out}
+           "rc": rc, "seconds": round(seconds, 1), "timed_out": timed_out,
+           "scans": _scans(log) if log is not None else None}
     path = Path(cell_path(arch, shape, mesh, policy))
     if not path.exists():
         row["error"] = "no record" + (" (killed at its limit)"
@@ -115,11 +141,15 @@ def run_sweep(cells, jobs: int, timeout: float, out: Path):
                     still.append((cell, proc, log, t0))
                     continue
                 log.close()
-                row = _summarise(cell, proc.returncode, took, timed_out)
+                row = _summarise(cell, proc.returncode, took, timed_out,
+                                 Path(log.name))
                 rows.append(row)
+                sc = row["scans"]
                 print(f"{' x '.join(cell)}: rc {proc.returncode}, "
                       f"{took:.1f} s, "
                       f"{row.get('reshards', '-')} reshards"
+                      + (f", scan steps ran {sc['ran']} charged "
+                         f"{sc['charged']} of {sc['steps']}" if sc else "")
                       + (f", ERROR {row['error']}" if row.get("error")
                          else ""), flush=True)
             running = still
@@ -169,42 +199,60 @@ def _by_op(rows, out: Path):
             for p, t in table.items()}
 
 
-def probe_slstm(arch, shape, mesh, policy, seconds: float) -> dict:
-    """Seconds per sLSTM cell step of one cell's dry run (the module
-    docstring)."""
+def probe_slstm(arch, shape, mesh, policy, reps: int = PROBE_REPS,
+                **knobs) -> dict:
+    """Seconds per sLSTM cell step of one cell's dry run, three ways (the
+    module docstring); the cell stops after its first sLSTM block's
+    steady step. ``knobs`` go to ``run_cell`` (tests: a smoke config)."""
+    import torch
+    from torch.utils._python_dispatch import _disable_current_modes
     from repro_torch.launch.dryrun import run_cell
     from repro_torch.models.lm import xlstm
 
     class _Stop(Exception):
         pass
 
-    calls = []
-    plain = xlstm._slstm_cell
+    plain, calls, res = xlstm._slstm_cell, [], {}
 
-    def timed(*a, **k):
+    def per_step(fn):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps
+
+    def meta(t):
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+    def probed(params, cfg, x_t, state):
         calls.append(time.monotonic())
-        if calls[-1] - calls[0] > seconds:
-            raise _Stop(f"probe stopped after {seconds} s")
-        return plain(*a, **k)
+        if len(calls) < STEADY_CALL:
+            return plain(params, cfg, x_t, state)
+        res["dtensor_with_modes_s"] = per_step(
+            lambda: plain(params, cfg, x_t, state))
+        with _disable_current_modes():
+            with ReshardMode():     # the step may need its reshards to run
+                res["dtensor_s"] = per_step(
+                    lambda: plain(params, cfg, x_t, state))
+            m_params = {k: meta(v) for k, v in params.items()}
+            m_x, m_state = meta(x_t), tuple(meta(v) for v in state)
+            res["meta_s"] = per_step(
+                lambda: plain(m_params, cfg, m_x, m_state))
+        raise _Stop("probe done")
 
-    cfg = configs.get_config(arch)
-    cell = next(s for s in configs.shapes_for(arch)
-                if s.shape_name == shape)
-    n_slstm = cfg.n_layers // (cfg.xlstm_mlstm_per_slstm + 1)
-    xlstm._slstm_cell = timed
+    xlstm._slstm_cell = probed
     try:
         t0 = time.monotonic()
-        rec = run_cell(arch, shape, mesh, policy=policy)
+        rec = run_cell(arch, shape, mesh, policy=policy, **knobs)
     finally:
         xlstm._slstm_cell = plain
-    n = len(calls) - 1
-    per = (calls[-1] - calls[1]) / (n - 1) if n > 1 else None
-    return {"cell": [arch, shape, mesh, policy], "probe_s": seconds,
+    return {"cell": [arch, shape, mesh, policy], "reps": reps,
             "before_first_step_s": round(calls[0] - t0, 2) if calls
-            else None,
-            "steps_timed": n, "s_per_step": per,
-            "slstm_layers": n_slstm, "steps_in_cell": n_slstm * cell.seq_len,
-            "error": rec.get("error")}
+            else None, **res,
+            "dtensor_dispatch_s": (res["dtensor_s"] - res["meta_s"]
+                                   if res else None),
+            "modes_s": (res["dtensor_with_modes_s"] - res["dtensor_s"]
+                        if res else None),
+            "error": None if res else rec.get("error")}
 
 
 def main(argv=None):
@@ -216,12 +264,13 @@ def main(argv=None):
     ap.add_argument("--jobs", type=int, default=os.cpu_count() or 1)
     ap.add_argument("--out", default="artifacts/dryrun_sweep")
     ap.add_argument("--probe", default=None,
-                    help="arch:shape:mesh:policy: time its sLSTM steps")
+                    help="arch:shape:mesh:policy: time its sLSTM step "
+                    "three ways")
     args = ap.parse_args(argv)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     if args.probe:
-        res = probe_slstm(*args.probe.split(":"), PROBE_S)
+        res = probe_slstm(*args.probe.split(":"))
         print(json.dumps(res))
         (out / "slstm_probe.json").write_text(json.dumps(res, indent=2))
         return 0

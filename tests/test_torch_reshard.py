@@ -11,8 +11,12 @@ on a partial sum reshards its own argument in place; and a masked
 partial sum (the vocab-sharded gather's) is reduced before an index
 leaves its mask the wrong shape, which DTensor would fail on at the
 reduction; an op DTensor has no rule for runs on the full tensors of its
-replicated arguments.
+replicated arguments; a refusal the mode gets past leaves no shard to
+the cyclic collector (its traceback's frames held them, and the dry
+run's memory tracker counted them until a collection).
 """
+import gc
+
 import pytest
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -219,3 +223,22 @@ def test_an_output_placed_off_its_mesh_runs_replicated(mesh):
     assert [e["mesh_dim"] for e in mode.log] == ["model", "data"]
     _, nbytes, _ = reshard_totals(mode.log)
     assert {k: v for k, v in counter.bytes.items() if v} == nbytes
+
+
+def test_a_refusal_gone_past_leaves_no_shard_to_the_cyclic_collector(mesh):
+    x = _leaf(mesh)
+    gc.collect()
+    gc.disable()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        with ReshardMode(CollectiveCounter()) as mode:
+            y = x.view(32, 7, 8)
+        assert tuple(y.shape) == (32, 7, 8) and mode.log[0]["n"] == 1
+        gc.collect()
+        held = [o for o in gc.garbage if isinstance(o, torch.Tensor)]
+        assert held == []
+        assert not any(isinstance(o, BaseException) for o in gc.garbage)
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
