@@ -34,7 +34,17 @@
    per layer).
    Prints per-batch latency, the device idle share and the LEE. The A8
    step of every quantized matmul runs inside its launch: one f32-A
-   matmul launch per quantized product, and no act-quant launch.
+   matmul launch per quantized product, and no act-quant launch. Each
+   engine's warmup captures every (bucket, batch class, path) as a CUDA
+   graph (``repro_torch.captured``; count, capture seconds and graph-pool
+   bytes printed), the counted batches replay them, and steady traffic
+   captures nothing (``compiled_shapes`` unchanged). One padded batch per
+   path replays against five eager runs of the engine's eager functions
+   (``hold_replay``: energies bit for bit, the sparse path's forces,
+   whose backward sums with atomics, within twice the eager runs' largest
+   gap); ms per batch and the idle share eager against replay,
+   alternated; the profiler's kernels over one replayed sparse batch
+   equal the launches its capture recorded.
 4. Serves the int8-KV decode of qwen2-0.5b at full width (24 layers,
    d_model 896, 14 heads over 2 KV heads, vocab 151,936; W8 weights,
    bf16 activations) through ``repro_torch.launch.serve``: batch 8, a
@@ -47,6 +57,14 @@
    activations), and the smoke config on the card against the CPU plain
    path. Prints ms/step, tok/s, the weight and
    cache bytes and the device idle share and device events of one step.
+   The greedy decode runs its first step eagerly and replays the step
+   captured for (B, S) (``decode_step`` at a position read from a device
+   buffer, ``lm_head``, the argmax into the static ids): four more
+   decodes from fresh caches (replay, eager, eager, replay) give the
+   same tokens and, bit for bit, the same caches, with ms/step and tok/s
+   paired; an eager step at a device position and a replayed step run
+   under sync-debug "error"; the profiler's kernels over one replayed
+   step equal its recorded 24 K5' and 24 K6, and that step's idle share.
 
 5. Runs NVE MD through ``repro_torch.md.MDEngine`` at the paper's full
    width (W4A8, MDDQ through the encode kernel): benchmarks/md_bench.py's
@@ -64,7 +82,15 @@
    1e-4 traced to A8 codes that moved (``md_a8_split``). Prints ms/step,
    steps/s, ns/day, the
    device busy and idle share of a step, the select-rebuild's device
-   time, the rebuilds and the drift rate (reported, not gated).
+   time, the rebuilds and the drift rate (reported, not gated). The
+   record segment is captured per (replica batch, edge slots, length)
+   before the counted run, which replays it; a replayed 10-step segment
+   is held against three eager ones (coordinates, e_tot, temperature:
+   bit for bit where the eager runs agree, else within twice their
+   largest relative gap), a replayed segment also runs under
+   sync-debug "error", the profiler's kernels over a replayed one-step
+   segment equal its recorded 13/3/3/3, and ms/step and ns/day eager
+   against replay are paired (eager, replay, replay, eager).
 6. Serves online SO3 traffic through ``repro_torch.server`` at the
    paper's width (W4A8, MDDQ through the encode kernel, sparse path,
    buckets 16 and 32, 1,024 edge slots per molecule). Packs the engine
@@ -171,9 +197,12 @@
    line by line as Prometheus text, holds the series the stock SLOs and
    detectors read that this configuration writes (the CLI arms no MD
    drift limit and no LEE probe, and a clean replay has no pool event)
-   and counts the requests sent as submitted; the exporter and the
-   monitor did not miss an interval, raised nothing and evaluated without
-   error; the trace file holds one trace per request and per session
+   and counts the requests sent as submitted; the exporter did not miss
+   an interval, the monitor did not miss a period (counted from its own
+   step times: its first step within one interval of its thread's start,
+   no gap from a step's end to the next step's start over the interval
+   plus 0.25 s, a final step on stop), both raised nothing and evaluated
+   without error; the trace file holds one trace per request and per session
    chunk and ``load_traces`` round-trips it; the Chrome timeline of the
    traces, the flush records and the warmup records passes
    ``validate_chrome_trace``; the alerts file holds exactly the alerts
@@ -276,7 +305,12 @@
    step, one profiled prefill and decode step (device busy, idle share,
    the ten longest kernels), K6's device us and bound at its shape, and
    the share of choices the capacity dropped in the prefill and in a
-   decode step. (b)
+   decode step; then the greedy decode of FAM_GREEDY tokens in the
+   288-slot cache, replayed then eager (same tokens and caches, ms/step
+   of each, no host sync under sync-debug "error"), as in phase 4, and
+   one step replayed at position 287 (K6's multi-split device plan) on
+   the decode's cache against the eager step there, counted: K5' and K6
+   once per layer and nothing else (for every family below). (b)
    moonshot-v1-16b-a3b as (a), one layer deep (K5' and K6 16 times;
    K6's new shape G 1 at hd 128 held and timed). (c) zamba2-1.2b at full
    depth (19 groups of two Mamba2 blocks and the shared attention): as
@@ -340,10 +374,14 @@
 
 Phase 2 also holds the act-quant kernel bit for bit (float32 and bf16),
 its KV entry (the decode's whole int8 KV write) byte for byte over a
-stacked cache, and the int8-KV decode attention to 1e-5 against their
-plain versions,
+stacked cache at an int position and at a position read from device
+memory, and the int8-KV decode attention to 1e-5 against their plain
+versions,
 the latter timed at 2,048 of 2,048 tokens and at the decode's 64 of
-1,024, beside SDPA's event and device times in float32 and bf16.
+1,024, beside SDPA's event and device times in float32 and bf16, and
+with a device position (the grid sized from S) at the decode's shape
+(n_valid 1, 64, 1,024 of 1,024) and at hd 128, G 8 (8 and 16 rows, S 288
+and 1,024), both entries' device us beside ``k6_bound``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -360,6 +398,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -394,6 +433,7 @@ MD_RECORD_EVERY, MD_STEPS = 50, 1000
 # the capacity MDEngine.init_state sizes for this system (552 listed
 # edges x 1.3, clamped to the complete graph's 576, rounded to 128)
 MD_EDGE_CAPACITY = 640
+MD_PAIRED_STEPS = 100        # per timed run, eager against replay
 # the whole run's limit: the caller allows 1,200 s, builds included
 WATCHDOG_S = 1100
 # phase 6: Poisson traffic over two buckets through the scheduler; 100
@@ -436,6 +476,10 @@ F32_GRAD_FACTOR = 8.0
 HEALTH_TIERS = "w4a8:2,w8a8:1,fp32:1"
 HEALTH_REQUESTS, HEALTH_SESSION_STEPS = 400, 200
 HEALTH_EXPORT_S, HEALTH_EVAL_S = 1.0, 0.5
+# the monitor's wait may wake this late behind the serving threads (the
+# GIL): a gap from one step's end to the next step's start above
+# HEALTH_EVAL_S + HEALTH_GAP_SLACK_S is a missed period
+HEALTH_GAP_SLACK_S = 0.25
 HEALTH_ORDER = ("on", "off", "off", "on")
 HEALTH_PHASE_S = 120.0
 # phase 10: phase 4's model prefills B x S random tokens (torch seed 10)
@@ -501,6 +545,7 @@ FAM_BATCH, FAM_SEQ, FAM_DECODE, FAM_FORCED = 2, 256, 16, 64
 FAM_SMOKE_SEQ, FAM_SMOKE_STEPS = 32, 8
 FAM_CARD_TOL, FAM_F32_TOL = 1e-4, 5e-3
 FAM_PHASE_S = 180.0
+FAM_GREEDY = 6               # tokens per greedy decode, replay against eager
 # phase 13: the distribution layer. (a) phase 11 (b)'s case on the local
 # (1, 1) NCCL mesh against the plain step, timed DIST_TIMING_REPS times
 # each in turns; (c) the dry run (launch/dryrun.py) of DRYRUN_CELLS, one
@@ -1170,25 +1215,36 @@ def check_kv_append(torch, dev, gen):
             x[0, 0, 0] = 0.0
             H, name = nkv * rep, str(dt).replace("torch.", "")
             shape = f"B={B} nkv={nkv} hd={hd} replicate={rep} S={S} {name}"
-            for cur in (0, S - 1):
+            for cur, where in ((0, "int"), (S - 1, "int"),
+                               (0, "device"), (S - 1, "device")):
+                # the host int, and the position read from device memory
+                pos = cur if where == "int" else torch.tensor(
+                    cur, dtype=torch.int32, device=dev)
                 got = _kv_cache(torch, dev, B, H, S, hd)
                 want = [t.clone() for t in got]
-                write(kv_append_int8, x, *got, cur, rep)
+                write(kv_append_int8, x, *got, pos, rep)
                 write(kv_append_int8_ref, x, *want, cur, rep)
                 torch.cuda.synchronize()
                 same = (torch.equal(got[0], want[0]) and torch.equal(
                     got[1].view(torch.int32), want[1].view(torch.int32)))
                 written = bool((got[0][:, 1, :, :, cur] != -128).all())
-                print(f"  kv_append_int8 {shape} cur={cur}: whole cache "
-                      f"bit-identical={same}, slot written={written}")
+                print(f"  kv_append_int8 {shape} cur={cur} ({where} "
+                      f"position): whole cache bit-identical={same}, slot "
+                      f"written={written}")
                 require(same and written, f"kv_append_int8 {shape} "
-                        f"cur={cur} differs from its plain version")
+                        f"cur={cur} ({where} position) differs from its "
+                        "plain version")
             q, s = _kv_cache(torch, dev, B, H, S, hd)
             cur = min(LM_TOKENS, S - 1)
             fn = lambda: write(kv_append_int8, x, q, s, cur, rep)  # noqa
             dev_ms, per_call = device_profile(torch, fn)
             require(dev_ms is None or per_call == 1,
                     f"kv_append_int8 ran {per_call} kernels per call")
+            pos = torch.tensor(cur, dtype=torch.int32, device=dev)
+            dfn = lambda: write(kv_append_int8, x, q, s, pos, rep)  # noqa
+            pos_ms, pos_per = device_profile(torch, dfn)
+            require(pos_ms is None or pos_per == 1, f"kv_append_int8 ran "
+                    f"{pos_per} kernels per call at a device position")
             n_bytes = 2 * B * nkv * hd * x.element_size() + 2 * B * H * (hd
                                                                         + 4)
             b_ms, b_by = bound(n_bytes, 3 * 2 * B * H * hd, FP32_OPS_PER_S)
@@ -1196,7 +1252,12 @@ def check_kv_append(torch, dev, gen):
                    "device_ms": dev_ms, "device_kernels_per_call": per_call,
                    "plain_ms": time_ms(torch, lambda: write(
                        kv_append_int8_ref, x, q, s, cur, rep)),
-                   "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0}
+                   "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
+                   "device_position_ms": time_ms(torch, dfn),
+                   "device_position_device_ms": pos_ms}
+            print(f"  kv_append_int8 {shape}: device {dev_ms} ms (int "
+                  f"position), {pos_ms} ms (device position) per call "
+                  f"(profiler), bound {b_ms:.6f} ms ({b_by})")
             if rep == 1:
                 old = lambda: stacked(x, q, s, cur)             # noqa: E731
                 old_dev, old_per = device_profile(torch, old)
@@ -1281,15 +1342,77 @@ def check_decode_attention(torch, dev, gen):
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     shape=f"BH={rows} G={g} D={hd} S={s_len} "
                           f"n_valid={n_valid}", **lib)
+    dev_pos, dev_errs = check_decode_attention_device(torch, dev, gen)
     return [dict(timed(S, S), name="decode_attention_int8kv", route="cuda",
                  source="src/repro_torch/kernels/csrc/attention_int8kv.cu",
                  replaces="src/repro/kernels/attention_int8kv.py:61",
-                 max_abs_err=max(errs),
+                 max_abs_err=max(errs + dev_errs),
+                 device_position=dev_pos,
                  library="scaled_dot_product_attention(enable_gqa) on the "
                          "dequantized f32 valid tokens (library_bf16_*: on "
                          "their bf16 cast): a yardstick without the "
                          "dequantization",
                  other_shapes=[timed(LM_CACHE, LM_TOKENS)])]
+
+
+def check_decode_attention_device(torch, dev, gen):
+    """K6 with the position read from device memory (the decode's
+    ``cur_index`` tensor: tokens [0, p]; the grid sized from S, each
+    block the host's plan of the n_valid it reads) within 1e-5 of its
+    plain version and bit for bit equal to the int entry: at the
+    decode's grouping (16 rows x 7 heads, hd 64, S 1,024, n_valid 1, 64
+    and 1,024) and at hd 128, G 8 (8 and 16 rows, S 288 and 1,024,
+    n_valid 1, 37, 288 or 1,024). The device us per call of both
+    entries (CUDA events behind a sleep kernel) beside ``k6_bound``.
+    Returns (records, errors)."""
+    from repro_torch.kernels.attention_int8kv import (
+        decode_attention_int8kv, device_split_plan, split_plan)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import decode_attention_int8kv_ref
+    cases = [(LM_BATCH * 2, 7, 64, LM_CACHE, (1, LM_TOKENS, LM_CACHE)),
+             (8, 8, 128, 288, (1, 37, 288)),
+             (16, 8, 128, 288, (1, 288)),
+             (16, 8, 128, 1024, (1, 288, 1024))]
+    recs, errs = [], []
+    for rows, g, hd, s_len, valids in cases:
+        scale = hd ** -0.5
+        q = torch.randn(rows, g, hd, generator=gen, device=dev)
+        kv = ops.prepare_kv_int8(
+            torch.randn(rows, s_len, hd, generator=gen, device=dev) * 2,
+            torch.randn(rows, s_len, hd, generator=gen, device=dev))
+        for n_valid in valids:
+            pos = torch.tensor(n_valid - 1, dtype=torch.int32, device=dev)
+            got = decode_attention_int8kv(q, *kv, pos, scale)
+            want = decode_attention_int8kv_ref(q, *kv, n_valid, scale)
+            host = decode_attention_int8kv(q, *kv, n_valid, scale)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            errs.append(err)
+            shape = f"BH={rows} G={g} D={hd} S={s_len} n_valid={n_valid}"
+            require(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+                    f"decode_attention_int8kv, device position, {shape}: "
+                    f"differs from its plain version by {err}")
+            # each block takes the host's plan of the n_valid it reads
+            require(torch.equal(got, host), f"decode_attention_int8kv, "
+                    f"{shape}: the device position's result differs from "
+                    "the int position's")
+            int_us = queued_device_ms(torch, lambda: decode_attention_int8kv(
+                q, *kv, n_valid, scale)) * 1e3
+            dev_us = queued_device_ms(torch, lambda: decode_attention_int8kv(
+                q, *kv, pos, scale)) * 1e3
+            b_us, b_by = k6_bound((rows, g, hd), n_valid)
+            plans = (split_plan(rows, n_valid),
+                     device_split_plan(rows, s_len, n_valid))
+            print(f"  decode_attention_int8kv {shape}, device position: "
+                  f"max_abs_err={err}; device {int_us:.3f} us (int entry, "
+                  f"plan {plans[0]}), {dev_us:.3f} us (device entry, plan "
+                  f"{plans[1]}) per call (events behind a sleep kernel); "
+                  f"bound {b_us:.3f} us ({b_by})")
+            recs.append({"shape": shape, "max_abs_err": err,
+                         "int_device_us": int_us, "device_device_us": dev_us,
+                         "bound_us": b_us, "bound_by": b_by,
+                         "int_plan": plans[0], "device_plan": plans[1]})
+    return recs, errs
 
 
 # --- phase 3: the engine -----------------------------------------------------
@@ -1333,40 +1456,23 @@ def counted_run(fn):
     return (result, {kernel: launches}). The MDDQ encode's calls are split
     by search: ``mddq_encode_kernel`` the band search, and
     ``mddq_encode_full_search`` the full search. ``quantized_products``
-    counts the calls of ``ops.matmul_w8a8``/``matmul_w4a8``, the serving
-    path's quantized matmul entries, under the wrappers' lock (replica
-    workers call them from several threads). The role tallies
-    (``_launch.role_launches``) are reset with the counts."""
+    is ``ops.quantized_products``: the calls of ``ops.matmul_w8a8`` and
+    ``matmul_w4a8`` on the card, the serving path's quantized matmul
+    entries (a captured program's per replay, as its launches). The role
+    tallies (``_launch.role_launches``) are reset with the counts."""
     from repro_torch.kernels import _launch, ops
     from repro_torch.kernels.mddq_kernel import mddq_encode_kernel
     counters = kernel_counters()
-    for c in counters:
+    for c in counters + [ops.quantized_products]:
         c.launches = 0
     mddq_encode_kernel.full_launches = 0
     _launch.reset_role_launches()
-    entries = {k: getattr(ops, k) for k in ("matmul_w8a8", "matmul_w4a8")}
-
-    def quantized_products():
-        """Holder of the quantized matmul entries' call count."""
-    quantized_products.launches = 0
-
-    def counting(fn_):
-        def call(*args, **kw):
-            _launch.count_launch(quantized_products)
-            return fn_(*args, **kw)
-        return call
-    for k, fn_ in entries.items():
-        setattr(ops, k, counting(fn_))
-    try:
-        out = fn()
-    finally:
-        for k, fn_ in entries.items():
-            setattr(ops, k, fn_)
+    out = fn()
     counts = {c.__name__: c.launches for c in counters}
     full = mddq_encode_kernel.full_launches
     counts["mddq_encode_kernel"] -= full
     counts["mddq_encode_full_search"] = full
-    counts["quantized_products"] = quantized_products.launches
+    counts["quantized_products"] = ops.quantized_products.launches
     return out, counts
 
 
@@ -1454,6 +1560,97 @@ def stage_times(torch, eng, graphs, reps: int = 5):
 
 
 @contextlib.contextmanager
+def eager_programs():
+    """Inside the block the engines run their eager functions on the
+    card, not their captured programs: ``QuantizedEngine`` dispatches
+    through ``_eager_run`` and ``MDEngine`` runs ``_segment``. For the
+    checks that patch Python entries (recorded A8 and MDDQ codes, kernel
+    calls held against their plain versions), which a replay does not
+    call, and for the eager side of the paired timings."""
+    from repro_torch.md import MDEngine
+    from repro_torch.serving import QuantizedEngine
+    saved = (QuantizedEngine._run, MDEngine._captured_segment)
+    QuantizedEngine._run = QuantizedEngine._eager_run
+    MDEngine._captured_segment = MDEngine._segment
+    try:
+        yield
+    finally:
+        QuantizedEngine._run, MDEngine._captured_segment = saved
+
+
+# the port's CUDA kernels, by the wrapper whose count they advance, as the
+# profiler names them (qmm_kernel<W4, F32A>; the MDDQ band search)
+KERNEL_SYMBOLS = {"w8a8_matmul_f32a": "qmm_kernel<false, true>",
+                  "w4a8_matmul_f32a": "qmm_kernel<true, true>",
+                  "edge_softmax_fused": "edge_softmax_kernel",
+                  "mddq_encode_kernel": "band_kernel",
+                  "kv_append_int8": "kv_append_kernel",
+                  "decode_attention_int8kv": "decode_kernel<"}
+
+
+def profiled_kernel_counts(torch, fn):
+    """The port's device kernels by wrapper over one ``fn()`` (profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for k, sym in KERNEL_SYMBOLS.items():
+            if sym in e.name:
+                counts[k] += 1
+    return counts
+
+
+def check_replay_launches(torch, prog, what):
+    """The profiler's count of the port's kernels by name over one replay
+    of ``prog`` equals the launches it recorded while capturing (up to
+    three profiles: the profiler has lost events of short kernels)."""
+    want = {k: prog.launch_counts().get(k, 0) for k in KERNEL_SYMBOLS}
+    prog.replay()
+    torch.cuda.synchronize()
+    tries = []
+    for _ in range(3):
+        tries.append(profiled_kernel_counts(torch, prog.replay))
+        if tries[-1] == want:
+            break
+    print(f"  {what}: the profiler's kernels over one replay "
+          f"{nonzero(tries[-1])} against its recorded launches "
+          f"{nonzero(want)} ({len(tries)} profile(s))")
+    require(tries[-1] == want, f"{what}: the profiler saw {tries} over "
+                               f"one replay, the capture recorded {want}")
+
+
+def hold_replay(torch, replayed, eager_runs, names, what):
+    """A replay against eager runs of the same inputs, per output: bit
+    for bit where the eager runs agree bit for bit; where they differ
+    (the sparse backward's ``index_add`` sums with atomics, in any
+    order), within twice the largest gap between two of them. Returns
+    {name: (gap, spread)}."""
+    import itertools
+    out = {}
+    for i, name in enumerate(names):
+        e0 = eager_runs[0][i]
+        spread = max(float((a[i].double() - b[i].double()).abs().max())
+                     for a, b in itertools.combinations(eager_runs, 2))
+        gap = float((replayed[i].double() - e0.double()).abs().max())
+        ok = torch.equal(replayed[i], e0) if spread == 0 \
+            else gap <= 2 * spread
+        print(f"  {what}, {name}: replay vs eager max |diff| {gap}; "
+              f"{len(eager_runs)} eager runs' largest gap {spread} ("
+              + ("bit for bit required" if spread == 0 else
+                 "within twice that required") + ")")
+        require(ok, f"{what}: the replay's {name} differ from eager by "
+                    f"{gap} (eager runs' spread {spread})")
+        out[name] = (gap, spread)
+    return out
+
+
+@contextlib.contextmanager
 def recorded_codes(rows=None):
     """Inside the block, each quantized product's A8 codes
     (``act_quant_ref`` of its input, which the f32-A kernels quantize bit
@@ -1493,7 +1690,8 @@ def recorded_codes(rows=None):
     ops.matmul_w4a8 = rec_mm(saved["matmul_w4a8"])
     ops.mddq_qdq_kernel = rec_mddq(saved["mddq_qdq_kernel"])
     try:
-        yield a8, mddq
+        with eager_programs():
+            yield a8, mddq
     finally:
         for k, fn in saved.items():
             setattr(ops, k, fn)
@@ -1527,6 +1725,32 @@ def split_gap(serve_a, serve_b, label: str):
     return (rel_e, rel_f), per_layer
 
 
+def replay_against_eager(torch, eng, graphs, path):
+    """One padded batch of ``graphs`` through the engine's program
+    (replayed) and five times through its eager functions on the card:
+    energies and forces held by :func:`hold_replay`."""
+    from repro_torch.serving import build_edge_list, pad_graphs, plan_batches
+    plan = plan_batches(graphs, eng.serve.buckets())[0]
+    species, coords, mask = pad_graphs(graphs, plan,
+                                       pad_species=eng.serve.pad_species)
+    if path == "sparse":
+        el = build_edge_list(coords, mask, eng.model_cfg.cutoff,
+                             plan.bucket.edges)
+        run = lambda: eng._run_sparse(species, coords, mask, el)  # noqa
+        key = ("sparse",) + species.shape + (el.edge_capacity,)
+    else:
+        run = lambda: eng._run_dense(species, coords, mask)  # noqa
+        key = ("dense",) + species.shape
+    require(key in eng.compiled_shapes, f"{key} was not captured")
+    replayed = [t.cpu() for t in run()]
+    eager = []
+    for _ in range(5):
+        with eager_programs():
+            eager.append([t.cpu() for t in run()])
+    hold_replay(torch, replayed, eager, ("energies", "forces"),
+                f"{path} batch {key}")
+
+
 def run_engine(torch, dev, cfg, graphs):
     from repro_torch.models.so3krates import init_params
     from repro_torch.serving import QuantizedEngine, ServeConfig
@@ -1542,6 +1766,14 @@ def run_engine(torch, dev, cfg, graphs):
             f"unexpected w4a8 weight kinds {kinds}")
     for p, eng in engines.items():
         print(f"  warmup {p}: {eng.warmup():.3f} s")
+        progs = eng._programs
+        require(progs and set(progs) == eng.compiled_shapes
+                == eng.shapes_seen, f"{p}: warmup captured "
+                f"{sorted(progs)}, ran {sorted(eng.shapes_seen)}")
+        print(f"  {p}: {len(progs)} programs captured in warmup: "
+              f"{capture_seconds(progs.values())}, graph pool "
+              f"{pool_bytes_of(eng)} bytes [{gpu_identity()}]")
+    captured = {p: set(e.compiled_shapes) for p, e in engines.items()}
 
     results, launches = {}, {}
     for p, eng in engines.items():
@@ -1634,14 +1866,38 @@ def run_engine(torch, dev, cfg, graphs):
             f"too many MDDQ codes differ between the paths: {moved}")
 
     for p, eng in engines.items():
-        t0 = time.perf_counter()
-        reps = 5
-        for _ in range(reps):
-            eng.infer_batch(graphs)
-        per_batch = (time.perf_counter() - t0) / (2 * reps) * 1e3
-        print(f"  {p}: {per_batch:.3f} ms per 8-molecule batch "
-              f"(host clock over {reps} x 16 requests, forces included)")
+        replay_against_eager(torch, eng, graphs[:8], p)
+    for p, eng in engines.items():
+        # eager and replay alternated, each round 16 requests (2 batches)
+        times = {"eager": [], "replay": []}
+        for r in range(7):
+            for how in (("eager", "replay") if r % 2 == 0
+                        else ("replay", "eager")):
+                with (eager_programs() if how == "eager"
+                      else contextlib.nullcontext()):
+                    t0 = time.perf_counter()
+                    eng.infer_batch(graphs)
+                    times[how].append((time.perf_counter() - t0) / 2 * 1e3)
+        print(f"  {p}: ms per 8-molecule batch (host clock, forces "
+              f"included, median of 7 rounds of 16 requests, alternated): "
+              f"eager {statistics.median(times['eager']):.3f}, replay "
+              f"{statistics.median(times['replay']):.3f} "
+              f"[{gpu_identity()}]")
+    require({p: e.compiled_shapes for p, e in engines.items()} == captured
+            and all(len(e._programs) == len(captured[p])
+                    for p, e in engines.items()),
+            "a capture came under steady traffic")
+    print("  steady traffic captured nothing: compiled_shapes "
+          f"{ {p: len(c) for p, c in captured.items()} } as after warmup")
+    with eager_programs():
+        print("  eager:")
+        profile_batch(torch, engines["sparse"], graphs[:8])
+    print("  replay:")
     profile_batch(torch, engines["sparse"], graphs[:8])
+    sp = engines["sparse"]
+    key = next(k for k in sp._programs if k[0] == "sparse" and k[1] == 8)
+    check_replay_launches(torch, sp._programs[key],
+                          f"one sparse 8-molecule batch {key}")
     stage_times(torch, engines["sparse"], graphs[:8])
     lee = engines["sparse"].lee_diagnostic(graphs, seed=0, n_rotations=4)
     print(f"  LEE over 4 rotations (sparse): {lee}")
@@ -1792,7 +2048,95 @@ def run_lm_decode(torch, dev):
     require(rel_small <= 1e-4, f"LM smoke decode: card and CPU disagree by "
                                f"{rel_small}")
     profile_step(torch, lm, cache, LM_TOKENS)
+    greedy_replay_checks(torch, lm, LM_BATCH, LM_CACHE, LM_TOKENS,
+                         profiled=True)
     return launches, lm
+
+
+def greedy_replay_checks(torch, lm, batch, cache_len, n_tokens,
+                         profiled=False,
+                         order=("replay", "eager", "eager", "replay")):
+    """The captured greedy decode against the eager one
+    (``greedy_decode_eager``: the same step, the position in the same
+    device buffer), each from a fresh cache, in ``order`` (the LM's step
+    is captured already, or in the first run): the same tokens and, bit
+    for bit, the same cache; ms/step and tok/s of each over steps
+    2..n-1; an eager step at a device position and a replayed step under
+    sync-debug "error" (no host sync). With ``profiled``: the profiler's
+    kernels over one replayed step against its recorded launches, and
+    that step's device busy and idle share. Returns the replay's and the
+    eager's ms per step."""
+    from repro_torch.launch import serve
+    from repro_torch.models.lm.transformer import init_cache
+    name = lm.cfg.name
+    runs, caches = {"eager": [], "replay": []}, {}
+    for how in order:
+        cache = init_cache(lm.cfg, batch, cache_len, lm.device)
+        fn = serve.greedy_decode_eager if how == "eager" \
+            else serve.greedy_decode
+        runs[how].append(fn(lm, batch, cache_len, n_tokens, cache=cache))
+        caches.setdefault(how, cache)
+    prog = lm.programs[(batch, cache_len)]
+    first = runs["replay"][0].tokens
+    require(all(torch.equal(r.tokens, first)
+                for rs in runs.values() for r in rs),
+            f"{name}: the captured greedy decode's tokens differ from the "
+            "eager one's")
+    require(all(torch.equal(a, b) for a, b in zip(
+        *(tree_tensors(caches[h]) for h in ("eager", "replay")))),
+        f"{name}: the captured decode's cache differs from the eager one's")
+    ms = {h: [r.seconds / r.steps_timed * 1e3 for r in rs]
+          for h, rs in runs.items()}
+    line = "; ".join(
+        f"{h} " + ", ".join(f"{m:.3f}" for m in ms[h])
+        + f" ({batch * 1e3 / statistics.mean(ms[h]):.1f} tok/s)"
+        for h in ("replay", "eager"))
+    print(f"  {name} greedy decode B={batch} S={cache_len}, {n_tokens} "
+          f"tokens: replay and eager give the same tokens and caches; ms/step"
+          f" (host clock over steps 2..{n_tokens - 1}, in the order "
+          f"{', '.join(order)}): {line}; {capture_seconds([prog])} (the "
+          f"warm-up is step 1), graph pool {pool_bytes_of(lm)} bytes "
+          f"[{gpu_identity()}]")
+    # no host sync: an eager step at a device position, then a replay
+    cache = init_cache(lm.cfg, batch, cache_len, lm.device)
+    pos = torch.zeros((), dtype=torch.int32, device=lm.device)
+    ids = torch.zeros((batch, 1), dtype=torch.long, device=lm.device)
+    x = ids if lm.cfg.frontend == "token" else torch.zeros(
+        (batch, 1, lm.cfg.d_model), dtype=lm.cfg.dtype, device=lm.device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pos.fill_(0)
+        serve.decode(lm, cache, x, pos)
+        prog.static["pos"].fill_(1)
+        prog.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"  {name}: an eager step at a device position and a replayed "
+          "step ran under torch.cuda.set_sync_debug_mode('error'): no host "
+          "sync")
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+        prog.static["pos"].fill_(n_tokens)
+        check_replay_launches(torch, prog, f"one {name} decode step")
+        lat = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            prog.replay()
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prog.replay()
+            torch.cuda.synchronize()
+        rows = _device_rows(torch, prof)
+        busy, step_ms = sum(r[0] for r in rows), statistics.median(lat)
+        print(f"  one replayed decode step: device busy {busy:.3f} ms over "
+              f"{sum(r[1] for r in rows)} device events; host {step_ms:.3f} "
+              f"ms (median of 7) -> idle share "
+              + (f"{1 - busy / step_ms:.3f}" if busy else "not measured"))
+    return statistics.mean(ms["replay"]), statistics.mean(ms["eager"])
 
 
 # --- phase 5: MD -------------------------------------------------------------
@@ -1823,6 +2167,105 @@ def md_rel(a, b):
                   / np.abs(rb["e_tot"]).max()))
 
 
+def capture_seconds(progs):
+    """The seconds of captured programs, summed: warm-up runs, captures
+    and, of those, the graphs' instantiation; and the largest capture."""
+    progs = list(progs)
+    return (f"warm-up {sum(g.warmup_seconds for g in progs):.3f} s, "
+            f"capture {sum(g.capture_seconds for g in progs):.3f} s "
+            f"(instantiation {sum(g.instantiate_seconds for g in progs):.3f}"
+            f" s; largest capture "
+            f"{max(g.capture_seconds for g in progs):.3f} s)")
+
+
+def pool_bytes_of(owner):
+    """An owner's graph-pool bytes (``captured.pool_bytes``), or None."""
+    from repro_torch.captured import pool_bytes
+    pool = getattr(owner, "_graph_pool", None)
+    if pool is None:
+        pool = getattr(owner, "graph_pool", None)
+    return None if pool is None else pool_bytes(pool)
+
+
+def md_replay_checks(torch, eng, st0, species, mask, masses, system):
+    """Phase 5's captured segments: a replayed 10-step segment held
+    against three eager ones from the same state (coordinates, e_tot,
+    temperature: every output moves with the forces' summation order, so
+    each is held within twice the eager runs' largest relative gap over
+    all three, and bit for bit if they agree); the profiler's kernels
+    over one replay of a one-step segment (one force call) against its
+    recorded launches; ms/step and ns/day eager against replay over
+    MD_PAIRED_STEPS, alternated (eager, replay, replay, eager); the
+    device busy and idle share of a replayed 10-step segment."""
+    from torch.profiler import ProfilerActivity, profile
+    sp_t, mask_t, masses_t = eng.device_inputs(species, mask, masses)
+    outs = ("coords", "e_tot", "temperature_K")
+
+    def host(st, rec):
+        return [st.coords.cpu(), rec["e_tot"].cpu(),
+                rec["temperature_K"].cpu()]
+    eng._captured_segment(st0, sp_t, mask_t, masses_t, 10)   # capture
+    replayed = host(*eng._captured_segment(st0, sp_t, mask_t, masses_t, 10))
+    eager = [host(*eng._segment(st0, sp_t, mask_t, masses_t, 10))
+             for _ in range(3)]
+    import itertools
+    rel = [max(float((a[i] - b[i]).abs().max()) for a, b in
+               itertools.combinations(eager, 2))
+           / float(eager[0][i].abs().max()) for i in range(3)]
+    gaps = [float((replayed[i] - eager[0][i]).abs().max())
+            / float(eager[0][i].abs().max()) for i in range(3)]
+    spread = max(rel)
+    print(f"  a replayed 10-step segment vs eager (rel. to the largest "
+          f"|value|): {dict(zip(outs, gaps))}; 3 eager runs' largest gaps "
+          f"{dict(zip(outs, rel))} ("
+          + ("bit for bit required" if spread == 0 else
+             f"each within twice {spread} required") + ")")
+    require((all(torch.equal(replayed[i], eager[0][i]) for i in range(3))
+             if spread == 0 else max(gaps) <= 2 * spread),
+            f"MD: replayed segment differs from eager: {gaps}, eager "
+            f"spread {rel}")
+    eng._captured_segment(st0, sp_t, mask_t, masses_t, 1)    # capture
+    prog = eng._programs[(tuple(mask_t.shape),
+                                  st0.nlist.edge_capacity, 1)]
+    check_replay_launches(torch, prog, "one MD force call's segment")
+
+    times = {"eager": [], "replay": []}
+    for how in ("eager", "replay", "replay", "eager"):
+        with (eager_programs() if how == "eager"
+              else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run(st0, species, mask, masses, MD_PAIRED_STEPS)
+            torch.cuda.synchronize()
+            times[how].append((time.perf_counter() - t0) / MD_PAIRED_STEPS
+                              * 1e3)
+    line = []
+    for how, ms in times.items():
+        m = statistics.mean(ms)
+        line.append(f"{how} {ms[0]:.3f}, {ms[1]:.3f} ms/step "
+                    f"({MD_DT_FS * 1e-6 * 86400 / (m * 1e-3):.4f} ns/day)")
+    print(f"  {MD_PAIRED_STEPS} steps, eager vs replay (host clock, in the "
+          f"order eager, replay, replay, eager): {'; '.join(line)} "
+          f"[{gpu_identity()}]")
+    prog10 = eng._programs[(tuple(mask_t.shape),
+                                    st0.nlist.edge_capacity, 10)]
+    lat = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        prog10.replay()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3 / 10)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prog10.replay()
+        torch.cuda.synchronize()
+    busy = sum(r[0] for r in _device_rows(torch, prof)) / 10
+    step_ms = statistics.median(lat)
+    print(f"  one replayed step: device busy {busy:.4f} ms; host "
+          f"{step_ms:.3f} ms (median of 5 10-step replays) -> idle share "
+          + (f"{1 - busy / step_ms:.3f}" if busy else "not measured"))
+
+
 def run_md(torch, dev, cfg):
     """MD at the paper's width through ``MDEngine``: 1,000 steps of the
     md_bench system, counted; its gates; timings."""
@@ -1841,7 +2284,13 @@ def run_md(torch, dev, cfg):
             f"edge capacity {st0.nlist.edge_capacity}")
     sp_t, mask_t, masses_t = eng.device_inputs(species, mask, masses)
     eng._segment(st0, sp_t, mask_t, masses_t, 5)         # warm up
+    # the record segment's program, captured before the counted run
+    eng.run(st0, species, mask, masses, MD_RECORD_EVERY)
     torch.cuda.synchronize()
+    progs = eng._programs
+    print(f"  captured {len(progs)} segment program(s) {sorted(progs)}: "
+          f"{capture_seconds(progs.values())}, graph pool "
+          f"{pool_bytes_of(eng)} bytes [{gpu_identity()}]")
 
     t0 = time.perf_counter()
     (st, rec), launches = counted_run(lambda: eng.run(
@@ -1892,12 +2341,17 @@ def run_md(torch, dev, cfg):
     try:
         st_seg, rec_seg = eng._segment(st0, sp_t, mask_t, masses_t,
                                        MD_RECORD_EVERY)
+        _, rec_rep = eng._captured_segment(st0, sp_t, mask_t, masses_t,
+                                           MD_RECORD_EVERY)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    require(bool(torch.isfinite(rec_seg["e_tot"]).all()),
-            "the sync-debug segment is not finite")
-    print(f"  one {MD_RECORD_EVERY}-step record segment ran under "
-          "torch.cuda.set_sync_debug_mode('error'): no host sync")
+    require(bool(torch.isfinite(rec_seg["e_tot"]).all())
+            and bool(torch.isfinite(rec_rep["e_tot"]).all()),
+            "the sync-debug segments are not finite")
+    print(f"  one {MD_RECORD_EVERY}-step record segment, eager and "
+          "replayed, ran under torch.cuda.set_sync_debug_mode('error'): no "
+          "host sync")
+    md_replay_checks(torch, eng, st0, species, mask, masses, system)
 
     # device busy of a 10-step segment, per step, over its host time
     seg = lambda: eng._segment(st0, sp_t, mask_t, masses_t, 10)  # noqa
@@ -2110,7 +2564,8 @@ def check_kernel_calls(torch, run, label):
     for k, fn in saved.items():
         setattr(ops, k, recording(k, fn))
     try:
-        run()
+        with eager_programs():
+            run()
     finally:
         for k, fn in saved.items():
             setattr(ops, k, fn)
@@ -2217,8 +2672,13 @@ def run_server(torch, dev, cfg, graphs):
         sched = MicroBatchScheduler(eng, SchedulerConfig(max_batch=8,
                                                          deadline_ms=10.0))
         print(f"  scheduler warmup {sched.warmup_s:.3f} s over "
-              f"{len(eng.warmup_report)} (bucket, batch, path) shapes")
+              f"{len(eng.warmup_report)} (bucket, batch, path) shapes, "
+              f"{len(eng.compiled_shapes)} captured, graph pool "
+              f"{pool_bytes_of(eng)} bytes")
         shapes = set(eng.shapes_seen)
+        compiled = set(eng.compiled_shapes)
+        require(compiled == shapes, f"warmup ran {sorted(shapes)} and "
+                                    f"captured {sorted(compiled)}")
         eng.reset_stats()
         n0 = eng._n_infer_calls
         handles = []
@@ -2272,8 +2732,10 @@ def run_server(torch, dev, cfg, graphs):
         require(len(traces) == SERVER_REQUESTS
                 and all(t["status"] == "ok" for t in traces),
                 f"{len(traces)} traces for {SERVER_REQUESTS} requests")
-        require(eng.shapes_seen == shapes,
-                f"new shapes under traffic: {eng.shapes_seen - shapes}")
+        require(eng.shapes_seen == shapes
+                and eng.compiled_shapes == compiled,
+                f"new shapes under traffic: {eng.shapes_seen - shapes}, "
+                f"captured {eng.compiled_shapes - compiled}")
         require(n_calls == stats["n_flushes"],
                 f"{n_calls} guarded calls for {stats['n_flushes']} flushes")
         require(guard["lee_probes"] == (n0 + n_calls) // 8 - n0 // 8,
@@ -2432,22 +2894,19 @@ def predict_launches(runs, n_layers):
 
 @contextlib.contextmanager
 def counted_force_calls():
-    """MD force calls (``MDEngine._energy_forces``, the initial state's
-    included) per mode inside the block, from any thread."""
-    import threading
-    from repro_torch.md.engine import MDEngine
-    counts, lock = {}, threading.Lock()
-    plain = MDEngine._energy_forces
-
-    def counting(self, *args, **kw):
-        with lock:
-            counts[self.md.mode] = counts.get(self.md.mode, 0) + 1
-        return plain(self, *args, **kw)
-    MDEngine._energy_forces = counting
+    """MD force calls on the card (``md.engine.FORCE_CALLS``: eager calls,
+    the initial state's included, and a captured segment's per replay)
+    per mode inside the block, from any thread; the yielded dict is
+    filled when the block ends."""
+    from repro_torch.md.engine import FORCE_CALLS
+    before = {m: c.launches for m, c in FORCE_CALLS.items()}
+    counts = {}
     try:
         yield counts
     finally:
-        MDEngine._energy_forces = plain
+        for m, c in FORCE_CALLS.items():
+            if c.launches > before[m]:
+                counts[m] = c.launches - before[m]
 
 
 def dispatch_counts(modes=("w4a8", "w8a8", "fp32")):
@@ -2488,7 +2947,8 @@ def check_roles(predicted, by_role, launches, where):
               "w4a8_matmul", "kv_append_int8", "decode_attention_int8kv")
     for role in sorted(set(predicted) | set(by_role)):
         got = {k: v for k, v in by_role.get(role, {}).items()
-               if k != "quantized_products"}
+               if k != "quantized_products"
+               and not k.startswith("md_force_calls_")}
         want = predicted.get(role, {})
         print(f"  {role}: launches {got}, predicted {want}")
         require(got == {k: v for k, v in want.items() if v},
@@ -2575,6 +3035,12 @@ def run_cluster(torch, dev, cfg, single):
           f", built and warmed in {build_s:.3f} s; warmup per replica "
           f"{[round(r['warmup_s'], 3) for r in st0['replicas']]} s "
           f"(parallel, one thread each) [{ident}]")
+    if dev.type == "cuda":
+        print(f"  captured programs per replica "
+              f"{[len(r.engine.compiled_shapes) for r in reps]}; graph pool "
+              f"bytes per replica {[pool_bytes_of(r.engine) for r in reps]}"
+              f", {torch.cuda.memory_reserved(dev)} bytes reserved on the "
+              f"card [{ident}]")
     require(all(r.device == dev for r in reps) and (
         dev.type != "cuda"
         or len({r.stream.cuda_stream for r in reps}) == len(reps)),
@@ -3416,17 +3882,21 @@ def series_in(samples):
 @contextlib.contextmanager
 def health_threads():
     """Records, in each health-plane thread itself (the monitor's and the
-    exporter's loops), its CPU seconds and wall seconds when the loop ends
-    and the exception that ended it, if one did."""
+    exporter's loops), its CPU seconds, its loop's start and end
+    (``time.monotonic``) and wall seconds when the loop ends and the
+    exception that ended it, if one did; and on each monitor, in
+    ``_step_times``, the start and end of every ``step_all`` and whether
+    its thread made it (the final step on stop is the caller's)."""
     from repro_torch.obs import HealthMonitor, PeriodicExporter
     seen = []
     plain = {cls: cls._run for cls in (HealthMonitor, PeriodicExporter)}
+    plain_step = HealthMonitor.step_all
 
     def wrap(cls, fn):
         def run(self):
             rec = {"thread": cls.__name__, "error": None}
             seen.append(rec)
-            t0 = time.monotonic()
+            t0 = rec["t_start"] = time.monotonic()
             try:
                 fn(self)
             except BaseException as exc:
@@ -3434,15 +3904,55 @@ def health_threads():
                 raise
             finally:
                 rec["cpu_s"] = time.thread_time()
-                rec["wall_s"] = time.monotonic() - t0
+                rec["t_end"] = time.monotonic()
+                rec["wall_s"] = rec["t_end"] - t0
         return run
+
+    def step_all(self, now=None):
+        t0 = time.monotonic()
+        try:
+            return plain_step(self, now)
+        finally:
+            self.__dict__.setdefault("_step_times", []).append(
+                (t0, time.monotonic(),
+                 threading.current_thread() is self._thread))
     for cls, fn in plain.items():
         cls._run = wrap(cls, fn)
+    HealthMonitor.step_all = step_all
     try:
         yield seen
     finally:
         for cls, fn in plain.items():
             cls._run = fn
+        HealthMonitor.step_all = plain_step
+
+
+def check_monitor_periods(monitor, thread):
+    """Phase 9's monitor gate, from the monitor's own step times: its
+    loop waits its interval after each step, so a period is the interval
+    plus the step. The first step within one interval (plus the slack) of
+    the thread's start, no gap from a step's end to the next step's start
+    longer than the interval plus HEALTH_GAP_SLACK_S (the last periodic
+    step's end to the loop's end likewise: the stop may cut a wait
+    short), and a final step on stop, after the loop ended. Returns
+    (periodic steps, the longest gap in seconds)."""
+    times = getattr(monitor, "_step_times", [])
+    periodic = [(a, b) for a, b, own in times if own]
+    final = [(a, b) for a, b, own in times if not own]
+    limit = HEALTH_EVAL_S + HEALTH_GAP_SLACK_S
+    require(periodic, f"the health monitor made no periodic step over "
+                      f"{thread['wall_s']:.3f} s")
+    starts = [thread["t_start"]] + [b for _, b in periodic]
+    ends = [a for a, _ in periodic] + [thread["t_end"]]
+    gaps = [e - s for s, e in zip(starts, ends)]
+    worst = max(gaps)
+    require(worst <= limit,
+            f"the health monitor missed a period: a gap of {worst:.3f} s "
+            f"(> {HEALTH_EVAL_S} s + {HEALTH_GAP_SLACK_S} s slack) among "
+            f"its {len(periodic)} steps over {thread['wall_s']:.3f} s")
+    require(final and final[-1][0] >= thread["t_end"],
+            "the health monitor made no final step on stop")
+    return len(periodic), worst
 
 
 def check_health_files(args, files, threads):
@@ -3474,19 +3984,22 @@ def check_health_files(args, files, threads):
               if k[0] == "repro_obs_health_eval_errors_total" and v > 0]
     require(not errors, f"health-plane evaluation errors {errors}")
     # the loops swallow a failed export or step: each interval of the
-    # loop's life must show one (the last may race the stop), plus the
-    # final export and step on stop
+    # exporter's life must show one (the last may race the stop), plus the
+    # final export on stop; the monitor's periods are counted from its own
+    # step times (its loop waits the interval after each step)
     life = {t["thread"]: t["wall_s"] for t in threads}
-    periods = {"PeriodicExporter": int(life["PeriodicExporter"]
-                                       / HEALTH_EXPORT_S),
-               "HealthMonitor": int(life["HealthMonitor"] / HEALTH_EVAL_S)}
-    require(args._exporter.n_exports >= max(3, periods["PeriodicExporter"]),
+    exports = int(life["PeriodicExporter"] / HEALTH_EXPORT_S)
+    require(args._exporter.n_exports >= max(3, exports),
             f"{args._exporter.n_exports} exports over "
             f"{life['PeriodicExporter']:.3f} s: fewer than two periodic ones "
             "before the final, or a failed export")
-    require(args._health.n_steps >= periods["HealthMonitor"],
-            f"the health monitor stepped {args._health.n_steps} times over "
-            f"{life['HealthMonitor']:.3f} s")
+    n_periodic, worst_gap = check_monitor_periods(
+        args._health, next(t for t in threads
+                           if t["thread"] == "HealthMonitor"))
+    print(f"  health monitor: {n_periodic} periodic steps over "
+          f"{life['HealthMonitor']:.3f} s, longest gap between steps "
+          f"{worst_gap:.3f} s (interval {HEALTH_EVAL_S} s + slack "
+          f"{HEALTH_GAP_SLACK_S} s), a final step on stop")
     # the trace file: one trace per request and per session chunk
     text = Path(files["t.jsonl"]).read_text()
     docs = load_traces(files["t.jsonl"])
@@ -3867,6 +4380,11 @@ def checked_lm_kernels(torch, seen):
             setattr(ops, k, fn)
 
 
+def tree_tensors(tree):
+    from repro_torch.captured import tree_tensors as leaves
+    return leaves(tree)
+
+
 def nonzero(counts):
     return {k: v for k, v in counts.items() if v}
 
@@ -4051,9 +4569,11 @@ def record_k6_call(torch, run):
         run()
     finally:
         ops.decode_attention_int8kv = saved
-    q, k_q, k_s, v_q, v_s, n_valid, scale = calls[-1]
+    q, k_q, k_s, v_q, v_s, valid, scale = calls[-1]
+    # a count, or the decode position on the device: tokens [0, p]
+    n_valid = int(valid) + 1 if isinstance(valid, torch.Tensor) else valid
     ms = queued_device_ms(
-        torch, lambda: saved(q, k_q, k_s, v_q, v_s, n_valid, scale))
+        torch, lambda: saved(q, k_q, k_s, v_q, v_s, valid, scale))
     return (ms * 1e3, f"BH={q.shape[0]} G={q.shape[1]} D={q.shape[2]} "
                       f"n_valid={n_valid}", k6_bound(tuple(q.shape), n_valid))
 
@@ -4696,6 +5216,13 @@ def serve_family(torch, dev, arch, cfg, params, f32_bytes, gen, held,
         k6 = us
         line = (f"; K6 at {shape}: device {us:.3f} us per call (queued), "
                 f"bound {b_us:.3f} us ({b_by})")
+    c_len = S + 2 * n
+    rep_ms, eag_ms = greedy_replay_checks(torch, lm, B, c_len, FAM_GREEDY,
+                                          order=("replay", "eager"))
+    line += (f"; greedy decode ms/step replay {rep_ms:.3f} against eager "
+             f"{eag_ms:.3f}")
+    line += replayed_last_step(torch, lm, cache, x[:, c_len - 1:c_len],
+                               c_len, kv_layers if cfg.kv_quant else 0)
     if cfg.moe:
         one_step = dec_routing[:n_groups(cfg)]
         line += (f"; choices dropped by capacity: prefill "
@@ -4715,6 +5242,38 @@ def serve_family(torch, dev, arch, cfg, params, f32_bytes, gen, held,
           f"{nonzero(counts)}{line}; {time.perf_counter() - t0:.1f} s "
           f"[{ident}]")
     return counts, k6, lm, x
+
+
+def replayed_last_step(torch, lm, cache, ids, c_len, n_kernel):
+    """The captured step of (batch, cache length) replayed once at the
+    cache's last position (K6's device plan at its most splits) on a copy
+    of ``cache`` (``c_len`` slots), against the eager step at that device position on
+    another copy: the same ids and, bit for bit, the same cache; the
+    replay counted, K5' and K6 ``n_kernel`` times each and nothing else.
+    Returns a line for the family's report."""
+    from repro_torch.captured import copy_into, map_tensors
+    from repro_torch.kernels.attention_int8kv import device_split_plan
+    from repro_torch.launch import serve
+    batch, name = ids.shape[0], lm.cfg.name
+    prog = lm.programs[(batch, c_len)]
+    eager = map_tensors(lambda t: t.clone(), cache)
+    pos = torch.tensor(c_len - 1, dtype=torch.int32, device=lm.device)
+    want = serve.decode(lm, eager, ids, pos).argmax(-1, keepdim=True)
+    copy_into(prog.static["cache"], cache)
+    prog.static["ids"].copy_(ids)
+    prog.static["pos"].fill_(c_len - 1)
+    got, counts = counted_run(lambda: prog.replay().clone())
+    only_lm_kernels(counts, n_kernel, f"{name} replayed decode step at "
+                                      f"position {c_len - 1}")
+    require(torch.equal(got, want) and all(torch.equal(a, b) for a, b in zip(
+        tree_tensors(prog.static["cache"]), tree_tensors(eager))),
+        f"{name}: the decode step replayed at position {c_len - 1} differs "
+        "from the eager step")
+    rows = batch * lm.cfg.n_kv_heads * lm.cfg.kv_replicate
+    return (f"; one step replayed at position {c_len - 1} equals the eager "
+            f"step (ids and cache, bit for bit), launches {nonzero(counts)}"
+            + (f", K6's device plan {device_split_plan(rows, c_len, c_len)}"
+               if n_kernel else ""))
 
 
 def forced_f32(torch, lm, x):
@@ -5187,6 +5746,7 @@ def main() -> int:
     graphs = random_graphs(16, 9, 24, cfg.n_species, seed=0)
     gen = torch.Generator(device=dev).manual_seed(0)
     print("phase 2: kernels against their plain versions")
+    t0 = time.perf_counter()
     rows = check_quant_matmul(torch, dev, gen)
     rows += check_edge_softmax(torch, dev, gen, graphs, cfg)
     rows += check_mddq_encode(torch, dev, gen, cfg)
@@ -5206,13 +5766,20 @@ def main() -> int:
                   f"{lib or 'library None'}, bound {t['bound_ms']:.6f} ms "
                   f"({t['bound_by']})")
 
+    print(f"  phase 2 took {time.perf_counter() - t0:.1f} s")
     print("phase 3: QuantizedEngine, paper config, w4a8, MDDQ kernel")
+    t0 = time.perf_counter()
     so3 = run_engine(torch, dev, cfg, graphs)
+    print(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
     print("phase 4: LM decode, qwen2-0.5b, serve_w8a8, int8 KV, bf16")
+    t0 = time.perf_counter()
     lm, lm_model = run_lm_decode(torch, dev)
+    print(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
     print("phase 5: MDEngine, paper config, w4a8, MDDQ kernel, "
           f"{MD_REPLICAS} replicas x {MD_ATOMS} atoms")
+    t0 = time.perf_counter()
     md = run_md(torch, dev, cfg)
+    print(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
     print("phase 6: the online SO3 server, paper config, w4a8, MDDQ kernel, "
           f"buckets {SERVER_BUCKETS}, {SERVER_REQUESTS} requests at "
           f"{SERVER_RATE:.0f} req/s")

@@ -57,12 +57,12 @@ _SIGNATURES = {
     "repro_act_quant_f32": (_P, _P, _P, _I, _I, _I, _P),
     "repro_act_quant_bf16": (_P, _P, _P, _I, _I, _I, _P),
     "repro_kv_append_int8_f32": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _I, _P),
+                                 _I, _I, _I, _I, _I, _P, _I, _I, _P),
     "repro_kv_append_int8_bf16": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _I, _P),
+                                  _I, _I, _I, _I, _I, _P, _I, _I, _P),
     "repro_decode_attention_int8kv": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                      _F, _I, _P),
+                                      _P, _F, _I, _P),
 }
 
 _lock = threading.Lock()

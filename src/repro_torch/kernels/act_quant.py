@@ -19,8 +19,10 @@ decode takes :func:`kv_append_int8`.
 launch per layer and step: it reads the new token's K and V rows where
 the projection left them (strided views, last dim contiguous), quantizes
 each as :func:`act_quant` would, and stores codes and scales straight
-into the cache at ``cur_index``. A replicated head reads its kv head by
-index. One warp per (batch row, effective head, K|V), a block for the K
+into the cache at ``cur_index``: a Python int, or a 0-d int32 tensor on
+the card that the kernel reads there (the decode's traced position, so a
+captured step serves every position). A replicated head reads its kv
+head by index. One warp per (batch row, effective head, K|V), a block for the K
 and V rows of one head; each lane holds ``elems_per_lane(hd)`` elements
 in registers (:func:`kv_append_lane_map` is the work split, held on the
 CPU by the tests).
@@ -34,13 +36,14 @@ launches (CPU calls do not count).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Union
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import check_tensor, count_launch, stream_of
+from repro_torch.kernels._launch import (check_position, check_tensor,
+                                        count_launch, stream_of)
 from repro_torch.kernels.ref import act_quant_ref, kv_append_int8_ref
 
 __all__ = ["act_quant", "kv_append_int8", "elems_per_lane",
@@ -114,7 +117,7 @@ def kv_append_lane_map(batch: int, n_kv: int, hd: int,
 
 def kv_append_int8(k_new: torch.Tensor, v_new: torch.Tensor,
                    k_q: torch.Tensor, k_s: torch.Tensor, v_q: torch.Tensor,
-                   v_s: torch.Tensor, cur_index: int,
+                   v_s: torch.Tensor, cur_index: Union[int, torch.Tensor],
                    replicate: int = 1) -> None:
     """Quantize the new token's K and V rows into the int8 cache, in place.
 
@@ -123,8 +126,11 @@ def kv_append_int8(k_new: torch.Tensor, v_new: torch.Tensor,
     (B, nkv * replicate, S) float32, contiguous. Effective head h stores
     the codes and scale of ``new[:, h // replicate]`` (as
     ``act_quant``) at position ``cur_index``, which must lie in ``[0,
-    S)``; nothing else in the cache changes. On the card hd must be 8, 64
-    or 128, and the rows aligned to the lane's vector load.
+    S)``; nothing else in the cache changes. ``cur_index`` is a Python
+    int (checked here) or a 0-d int32 tensor on the cache's device, read
+    there (the kernel clamps it into ``[0, S)``; the caller owns the
+    range). On the card hd must be 8, 64 or 128, and the rows aligned to
+    the lane's vector load.
     """
     B, nkv, hd = k_new.shape
     if replicate < 1:
@@ -144,7 +150,8 @@ def kv_append_int8(k_new: torch.Tensor, v_new: torch.Tensor,
         if t.shape != shape:
             raise ValueError(f"{name}: expected shape {shape}, got "
                              f"{tuple(t.shape)}")
-    if not 0 <= cur_index < seq:
+    on_device = isinstance(cur_index, torch.Tensor)
+    if not on_device and not 0 <= cur_index < seq:
         raise ValueError(f"cur_index={cur_index} outside the cache's "
                          f"[0, {seq}) positions")
     if not k_new.is_cuda:
@@ -189,11 +196,16 @@ def kv_append_int8(k_new: torch.Tensor, v_new: torch.Tensor,
     if ptrs[0] % epl or ptrs[2] % epl:
         raise ValueError(f"k_q, v_q: each lane stores {epl} codes at once; "
                          "the caches must be aligned to them")
+    if on_device:
+        check_position("cur_index", cur_index, k_new.device)
+        cur_ptr, cur = cur_index.data_ptr(), 0
+    else:
+        cur_ptr, cur = None, cur_index
     if B * heads == 0:
         return
     err = getattr(_build.library(), entry)(
         k_new.data_ptr(), v_new.data_ptr(), *strides, *ptrs, B, heads,
-        replicate, seq, hd, cur_index, dev, stream_of(k_new.device))
+        replicate, seq, hd, cur_ptr, cur, dev, stream_of(k_new.device))
     _build.check(err, entry)
     count_launch(kv_append_int8)
 

@@ -19,8 +19,9 @@ with its own online-softmax state in registers (lane t scores token t
 against the row's G heads; each lane accumulates D / 32 fixed dims of
 P.V); the warps merge once at the end. With several splits the last
 block of a row to finish combines the row's splits in order, counted by
-a per-row ticket in a buffer this module keeps per device and stream
-(the kernel resets each ticket it uses, so the buffer is zeroed once).
+a per-row ticket in a buffer kept per device and stream, or, for a
+captured program, in the program's own store (``_launch.owned_buffers``);
+the kernel resets each ticket it uses, so the buffer is zeroed once.
 The splits give every warp at least one 32-token step and the card at
 most about two blocks per SM: at the decode's 16 rows, up to 128 valid
 tokens take one block per row and no combine.
@@ -30,6 +31,18 @@ per cached token, against about 4 * G * D flops) at long caches; at the
 decode's shapes (16 rows of at most a few hundred valid tokens) the
 latency of one launch and one round trip to device memory.
 
+The position may also live on the card: in place of ``n_valid``, the
+decode position ``p`` (the reference's traced ``cur_index``) as a 0-d
+int32 tensor on q's device, which every block reads (``n_valid = p +
+1``), so one captured decode step serves every position. The host then cannot plan from n_valid: the grid takes the
+splits the cache length S needs (the most any position can), each block
+derives from the n_valid it reads the host's own plan, chunk and run
+(:func:`device_split_plan`). The host's plan's splits are live; a split
+past them exits at once (an empty partial would weigh exactly 0), and
+the ticket combine counts and merges the live splits in order, so the
+result does not depend on which block finishes last and equals the int
+entry's bit for bit, and one live split writes the output itself.
+
 ``decode_attention_int8kv.launches`` counts calls that launched the
 kernel (one launch per call; CPU calls do not count).
 """
@@ -37,16 +50,18 @@ from __future__ import annotations
 
 import math
 import threading
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import check_tensor, count_launch, stream_of
+from repro_torch.kernels._launch import (check_position, check_tensor,
+                                        count_launch, owned_buffers,
+                                        stream_of)
 from repro_torch.kernels.ref import decode_attention_int8kv_ref
 
 __all__ = ["decode_attention_int8kv", "n_splits", "split_plan",
-           "warp_token_ranges"]
+           "device_split_plan", "warp_token_ranges"]
 
 _WARPS = 4                 # warps per block (csrc WARPS)
 _STEP = 32                 # tokens a warp takes per step (one per lane)
@@ -77,11 +92,25 @@ def split_plan(rows: int, n_valid: int) -> Tuple[int, int, int]:
     return splits, chunk, run
 
 
-def warp_token_ranges(rows: int, n_valid: int
+def device_split_plan(rows: int, seq: int,
+                      n_valid: int) -> Tuple[int, int, int]:
+    """The plan of a device position: (splits, chunk, run) with the grid's
+    splits sized from the cache length ``seq`` on the host (the most any
+    position needs) and chunk and run those of :func:`split_plan` of
+    ``n_valid``, which each block derives as the kernel does. Split y
+    takes the tokens [y * chunk, min((y + 1) * chunk, n_valid)): the
+    first ``split_plan(rows, n_valid)[0]`` splits, the rest none."""
+    _, chunk, run = split_plan(rows, n_valid)
+    return n_splits(rows, seq), chunk, run
+
+
+def warp_token_ranges(rows: int, n_valid: int, seq: Optional[int] = None
                       ) -> Iterator[Tuple[int, int, int, int]]:
     """(split, warp, first token, end) of every warp's run, as the kernel
-    indexes them (an empty run has end <= first)."""
-    splits, chunk, run = split_plan(rows, n_valid)
+    indexes them (an empty run has end <= first): under the host plan, or
+    with ``seq`` under the device plan of an ``seq``-token cache."""
+    splits, chunk, run = (split_plan(rows, n_valid) if seq is None
+                          else device_split_plan(rows, seq, n_valid))
     for y in range(splits):
         split_end = min(y * chunk + chunk, n_valid)
         for w in range(_WARPS):
@@ -90,28 +119,45 @@ def warp_token_ranges(rows: int, n_valid: int
 
 
 def _ticket_buffer(dev: torch.device, stream: int, rows: int) -> torch.Tensor:
-    """The per-row tickets of the split combine on ``dev`` and ``stream``,
-    zeroed when first made (one memset) and kept zero by the kernel."""
-    key = (dev.index, stream)
+    """The per-row tickets of the split combine on ``dev`` and ``stream``
+    (in the store of the program warmed up and captured there, if one
+    is), zeroed when first made (one memset) and kept zero by the kernel.
+    A per-stream buffer too small is replaced; a program's lives as long
+    as the program, whose graph holds its pointer."""
+    store, key = owned_buffers(stream), ("tickets", dev.index)
+    if store is None:
+        store, key = _tickets, (dev.index, stream)
     with _tickets_lock:
-        buf = _tickets.get(key)
+        buf = store.get(key)
         if buf is None or buf.numel() < rows:
+            # a capture's eager warm-up makes its program's buffer: made
+            # inside the capture, it would be zeroed on no replay
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "decode_attention_int8kv: no ticket buffer for this "
+                    "program before its capture; run the call eagerly on "
+                    "the capturing stream first")
             buf = torch.zeros((max(rows, 256),), dtype=torch.int32,
                               device=dev)
-            _tickets[key] = buf
+            store[key] = buf
         return buf
 
 
 def decode_attention_int8kv(q: torch.Tensor, k_q: torch.Tensor,
                             k_scale: torch.Tensor, v_q: torch.Tensor,
-                            v_scale: torch.Tensor, n_valid: int,
+                            v_scale: torch.Tensor,
+                            n_valid: Union[int, torch.Tensor],
                             softmax_scale: float) -> torch.Tensor:
     """q (BH, G, D) f32; k_q/v_q (BH, S, D) int8; k_scale/v_scale (BH, S)
-    f32; attends to tokens ``[0, n_valid)``, ``1 <= n_valid <= S``.
-    Returns (BH, G, D) f32."""
+    f32; attends to tokens ``[0, n_valid)``. ``n_valid`` is a Python int
+    (``ValueError`` unless it lies in ``[1, S]``), or in its place the
+    decode position ``p`` as a 0-d int32 tensor on q's device, read on the
+    device: the tokens ``[0, p]`` (the kernel clamps ``p`` into ``[0,
+    S)``; the caller owns the range). Returns (BH, G, D) f32."""
     bh, g, d = q.shape
     s = k_q.shape[1]
-    if not 1 <= n_valid <= s:
+    on_device = isinstance(n_valid, torch.Tensor)
+    if not on_device and not 1 <= n_valid <= s:
         raise ValueError(f"n_valid={n_valid} outside [1, {s}]")
     if not q.is_cuda:
         return decode_attention_int8kv_ref(q, k_q, k_scale, v_q, v_scale,
@@ -131,7 +177,14 @@ def decode_attention_int8kv(q: torch.Tensor, k_q: torch.Tensor,
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel loads 16-byte vectors; "
                              "its data must be 16-byte aligned")
-    splits, chunk, run = split_plan(bh, n_valid)
+    if on_device:
+        check_position("n_valid", n_valid, dev)
+        splits, chunk, run = n_splits(bh, s), 0, 0
+        pos_ptr, n_host = n_valid.data_ptr(), 0
+    else:
+        n_host = n_valid
+        splits, chunk, run = split_plan(bh, n_host)
+        pos_ptr = None
     stream = stream_of(dev)
     out = torch.empty((bh, g, d), dtype=torch.float32, device=dev)
     part_m = torch.empty((bh, splits, g), dtype=torch.float32, device=dev)
@@ -143,8 +196,8 @@ def decode_attention_int8kv(q: torch.Tensor, k_q: torch.Tensor,
         q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
         v_scale.data_ptr(), out.data_ptr(), part_m.data_ptr(),
         part_l.data_ptr(), part_acc.data_ptr(), tickets.data_ptr(), bh, g, d,
-        s, n_valid, chunk, run, splits, float(softmax_scale), dev.index,
-        stream)
+        s, n_host, chunk, run, splits, pos_ptr, float(softmax_scale),
+        dev.index, stream)
     _build.check(err, "repro_decode_attention_int8kv")
     count_launch(decode_attention_int8kv)
     return out

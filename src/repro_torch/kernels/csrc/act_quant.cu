@@ -21,6 +21,10 @@
 // layer): for every batch row b, effective head h and tensor K|V it
 // quantizes the new token's row new[b, h / replicate] as above and stores
 // the codes at q[b, h, cur, :] and the scale at s[b, h, cur] of the cache.
+// The position cur is a host int, or (cur_ptr non-null) an int32 the
+// kernel reads from device memory, so a captured step serves every
+// position; a device position is clamped to [0, S), as the JAX decode's
+// dynamic_update_index_in_dim clamps it.
 // The new rows come as strided views of the projection (last dim
 // contiguous); the replicated heads are found by index, so nothing is
 // stacked or repeated first. One warp per (b, h, K|V) row, two warps (the K
@@ -147,7 +151,8 @@ kv_append_kernel(const T* __restrict__ k_new, const T* __restrict__ v_new,
                  int k_sb, int k_sh, int v_sb, int v_sh,
                  int8_t* __restrict__ k_q, float* __restrict__ k_s,
                  int8_t* __restrict__ v_q, float* __restrict__ v_s,
-                 int H, int rep, int S, int cur) {
+                 int H, int rep, int S, const int* __restrict__ cur_ptr,
+                 int cur) {
     constexpr int EPL = HD == 128 ? 4 : 2;
     constexpr int LANES = HD / EPL;
     const int lane = threadIdx.x & 31;
@@ -167,6 +172,7 @@ kv_append_kernel(const T* __restrict__ k_new, const T* __restrict__ v_new,
     amax = a8::warp_max(amax);
     const float s = a8::row_scale<T>(amax);
 
+    if (cur_ptr != nullptr) cur = min(max(__ldg(cur_ptr), 0), S - 1);
     const size_t slot = (size_t)bh * S + cur;
     if (lane < LANES) {
         int c[EPL];
@@ -181,20 +187,21 @@ template <typename T, int HD>
 int launch_kv_append(const void* k_new, const void* v_new, int k_sb,
                      int k_sh, int v_sb, int v_sh, void* k_q, void* k_s,
                      void* v_q, void* v_s, int B, int H, int rep, int S,
-                     int cur, void* stream) {
+                     const void* cur_ptr, int cur, void* stream) {
     // one block per (b, h): its K row and its V row
     kv_append_kernel<T, HD><<<B * H, KV_WARPS * 32, 0,
                               (cudaStream_t)stream>>>(
         (const T*)k_new, (const T*)v_new, k_sb, k_sh, v_sb, v_sh,
-        (int8_t*)k_q, (float*)k_s, (int8_t*)v_q, (float*)v_s, H, rep, S, cur);
+        (int8_t*)k_q, (float*)k_s, (int8_t*)v_q, (float*)v_s, H, rep, S,
+        (const int*)cur_ptr, cur);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 int kv_append(const void* k_new, const void* v_new, int k_sb, int k_sh,
               int v_sb, int v_sh, void* k_q, void* k_s, void* v_q,
-              void* v_s, int B, int H, int rep, int S, int hd, int cur,
-              int device, void* stream) {
+              void* v_s, int B, int H, int rep, int S, int hd,
+              const void* cur_ptr, int cur, int device, void* stream) {
     if (B <= 0 || H <= 0) return 0;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
@@ -202,15 +209,15 @@ int kv_append(const void* k_new, const void* v_new, int k_sb, int k_sh,
         case 8:
             return launch_kv_append<T, 8>(k_new, v_new, k_sb, k_sh, v_sb,
                                           v_sh, k_q, k_s, v_q, v_s, B, H,
-                                          rep, S, cur, stream);
+                                          rep, S, cur_ptr, cur, stream);
         case 64:
             return launch_kv_append<T, 64>(k_new, v_new, k_sb, k_sh, v_sb,
                                            v_sh, k_q, k_s, v_q, v_s, B, H,
-                                           rep, S, cur, stream);
+                                           rep, S, cur_ptr, cur, stream);
         case 128:
             return launch_kv_append<T, 128>(k_new, v_new, k_sb, k_sh, v_sb,
                                             v_sh, k_q, k_s, v_q, v_s, B, H,
-                                            rep, S, cur, stream);
+                                            rep, S, cur_ptr, cur, stream);
         default:
             return (int)cudaErrorInvalidValue;
     }
@@ -231,16 +238,19 @@ extern "C" int repro_act_quant_bf16(const void* x, void* q, void* scale,
 extern "C" int repro_kv_append_int8_f32(
         const void* k_new, const void* v_new, int k_sb, int k_sh, int v_sb,
         int v_sh, void* k_q, void* k_s, void* v_q, void* v_s, int B, int H,
-        int rep, int S, int hd, int cur, int device, void* stream) {
+        int rep, int S, int hd, const void* cur_ptr, int cur, int device,
+        void* stream) {
     return kv_append<float>(k_new, v_new, k_sb, k_sh, v_sb, v_sh, k_q, k_s,
-                            v_q, v_s, B, H, rep, S, hd, cur, device, stream);
+                            v_q, v_s, B, H, rep, S, hd, cur_ptr, cur, device,
+                            stream);
 }
 
 extern "C" int repro_kv_append_int8_bf16(
         const void* k_new, const void* v_new, int k_sb, int k_sh, int v_sb,
         int v_sh, void* k_q, void* k_s, void* v_q, void* v_s, int B, int H,
-        int rep, int S, int hd, int cur, int device, void* stream) {
+        int rep, int S, int hd, const void* cur_ptr, int cur, int device,
+        void* stream) {
     return kv_append<__nv_bfloat16>(k_new, v_new, k_sb, k_sh, v_sb, v_sh,
-                                    k_q, k_s, v_q, v_s, B, H, rep, S, hd, cur,
-                                    device, stream);
+                                    k_q, k_s, v_q, v_s, B, H, rep, S, hd,
+                                    cur_ptr, cur, device, stream);
 }

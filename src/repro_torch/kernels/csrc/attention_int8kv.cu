@@ -26,12 +26,25 @@
 // that chain short and the launch single:
 //
 // - One launch. The grid is (BH, n_split); block (b, y) takes the tokens
-//   [y * chunk, min((y + 1) * chunk, n_valid)) of row b. With one split
-//   the block writes the output itself. Otherwise each block writes its
-//   partial (max, denominator, accumulator), and the last block of a row
-//   to finish (an atomic ticket after a __threadfence) combines the row's
-//   splits in split order y = 0, 1, ..., so the result does not depend on
-//   which block came last, and resets the ticket to 0 for the next call.
+//   [y * chunk, min((y + 1) * chunk, n_valid)) of row b. The host plans
+//   n_split, chunk and run from a host n_valid; with a device position
+//   (pos_ptr non-null: n_valid = *pos_ptr + 1, the decode's position read by
+//   every block, so a captured decode step serves every position) the
+//   host sizes n_split from S, the most any position needs, and each block
+//   derives from the n_valid it reads the host's own plan (its splits,
+//   chunk and run; never more splits than S needs). The first n_live
+//   splits hold tokens (all of them under the host's plan); a split past
+//   them exits at once, so a device position costs what the host's plan
+//   does, less the empty blocks' launch, and gives the same result bit
+//   for bit (an empty partial, max -inf and denominator 0, would weigh
+//   exactly 0 in the combine: skipping it gives the same sums). With one
+//   live split
+//   the block writes the output itself. Otherwise each live block writes
+//   its partial (max, denominator, accumulator), and the last live block
+//   of a row to finish (an atomic ticket after a __threadfence, counted to
+//   n_live) combines the row's live splits in split order y = 0, 1, ...,
+//   so the result does not depend on which block came last, and resets
+//   the ticket to 0 for the next call.
 // - No block barrier inside the token loop. Each of the block's 4 warps
 //   owns a contiguous run of `run` tokens and its own online-softmax state
 //   in registers: per head the running max, the denominator (per lane,
@@ -68,6 +81,7 @@ namespace {
 
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
+constexpr int TARGET_BLOCKS = 2 * 132;   // attention_int8kv.py _TARGET_BLOCKS
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float code_at(int word, int k) {
@@ -121,6 +135,7 @@ decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_q,
               float* __restrict__ part_m, float* __restrict__ part_l,
               float* __restrict__ part_acc, unsigned* __restrict__ tickets,
               int G, int S, int n_valid, int chunk, int run,
+              const int* __restrict__ pos_ptr,
               float softmax_scale) {
     static_assert(D % 8 == 0 && D <= 256, "D: a multiple of 8, <= 256");
     static_assert(GM == 1 || GM % 4 == 0, "GM: 1 or a multiple of 4");
@@ -145,6 +160,18 @@ decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_q,
     const int lane = tid & 31;
     const int w = tid >> 5;
     const bool owns_dims = lane * DPL < D;      // every lane once D >= 32
+    if (pos_ptr != nullptr) {
+        // the host's plan of this n_valid (attention_int8kv.py split_plan,
+        // device_split_plan), with n_valid clamped to [1, S] as the
+        // decode's position is to [0, S)
+        n_valid = min(max(__ldg(pos_ptr) + 1, 1), S);
+        const int splits = max(1, min((n_valid + WARPS * 32 - 1) / (WARPS * 32),
+                                      (TARGET_BLOCKS + gridDim.x - 1) / gridDim.x));
+        chunk = ((n_valid + splits - 1) / splits + 31) / 32 * 32;
+        run = (chunk / 32 + WARPS - 1) / WARPS * 32;
+    }
+    const int n_live = (n_valid + chunk - 1) / chunk;   // n_split, host plan
+    if (y >= n_live) return;                 // no token: the whole block
 
     const int split_end = min(y * chunk + chunk, n_valid);
     const int t_begin = y * chunk + w * run;
@@ -316,7 +343,9 @@ decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_q,
     __syncthreads();
 
     // merge the warps: per head, each warp's weight e = exp(m_w - M) and
-    // the denominator, once (warp 0 always holds a token)
+    // the denominator, once (an empty warp weighs 0; a block with no token
+    // at all, possible only under the device plan, gives the empty
+    // partial: M = -inf, denominator 0, accumulator 0)
     if (tid < G) {
         const int g = tid;
         float mx = -INFINITY;
@@ -325,7 +354,8 @@ decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_q,
         float lsum = 0.0f;
 #pragma unroll
         for (int v = 0; v < WARPS; ++v) {
-            const float e = expf(wm[v * GM + g] - mx);
+            const float e = mx == -INFINITY ? 0.0f
+                                            : expf(wm[v * GM + g] - mx);
             wm[v * GM + g] = e;
             lsum = fmaf(wl[v * GM + g], e, lsum);
         }
@@ -340,7 +370,7 @@ decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_q,
 #pragma unroll
         for (int v = 0; v < WARPS; ++v)
             a = fmaf(wacc[(v * GM + g) * D + (i - g * D)], wm[v * GM + g], a);
-        if (n_split == 1) {
+        if (n_live == 1) {
             out[(size_t)b * G * D + i] = a / head_l[g];
         } else {
             part_acc[prow * G * D + i] = a;
@@ -350,7 +380,7 @@ decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_q,
             }
         }
     }
-    if (n_split == 1) return;
+    if (n_live == 1) return;
 
     // the last block of the row to finish combines its splits, in split
     // order: the row's maxima and denominators go to shared memory in one
@@ -358,13 +388,13 @@ decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_q,
     // thread sums its outputs' partial accumulators with those weights
     __threadfence();
     __syncthreads();
-    if (tid == 0) is_last = atomicAdd(tickets + b, 1u) == (unsigned)(n_split - 1);
+    if (tid == 0) is_last = atomicAdd(tickets + b, 1u) == (unsigned)(n_live - 1);
     __syncthreads();
     if (!is_last) return;
     __threadfence();
-    float* sm = vrows_end;                       // n_split * GM
-    float* sl = sm + n_split * GM;               // n_split * GM
-    for (int k = tid; k < n_split * G; k += THREADS) {
+    float* sm = vrows_end;                       // n_live * GM
+    float* sl = sm + n_split * GM;               // n_live * GM
+    for (int k = tid; k < n_live * G; k += THREADS) {
         const int yy = k / G, g = k - yy * G;
         sm[yy * GM + g] = __ldcg(part_m + (size_t)b * n_split * G + k);
         sl[yy * GM + g] = __ldcg(part_l + (size_t)b * n_split * G + k);
@@ -372,12 +402,12 @@ decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_q,
     __syncthreads();
     for (int g = w; g < G; g += WARPS) {
         float mx = -INFINITY;
-        for (int yy = lane; yy < n_split; yy += 32) mx = fmaxf(mx, sm[yy * GM + g]);
+        for (int yy = lane; yy < n_live; yy += 32) mx = fmaxf(mx, sm[yy * GM + g]);
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
             mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
         float lsum = 0.0f;
-        for (int yy = lane; yy < n_split; yy += 32) {
+        for (int yy = lane; yy < n_live; yy += 32) {
             const float e = expf(sm[yy * GM + g] - mx);
             sm[yy * GM + g] = e;
             lsum = fmaf(sl[yy * GM + g], e, lsum);
@@ -396,7 +426,7 @@ decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k_q,
         const int g = 4 * i4 / D;
         float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll 16
-        for (int yy = 0; yy < n_split; ++yy) {
+        for (int yy = 0; yy < n_live; ++yy) {
             const float4 pa = __ldcg(acc_row + (size_t)yy * G * D / 4 + i4);
             const float e = sm[yy * GM + g];
             a.x = fmaf(pa.x, e, a.x);
@@ -416,7 +446,8 @@ cudaError_t launch(const void* q, const void* k_q, const void* k_s,
                    const void* v_q, const void* v_s, void* out, void* part_m,
                    void* part_l, void* part_acc, void* tickets, int BH, int G,
                    int S, int n_valid, int chunk, int run, int n_split,
-                   float softmax_scale, cudaStream_t stream) {
+                   const void* pos_ptr, float softmax_scale,
+                   cudaStream_t stream) {
     const size_t smem = sizeof(float) * ((size_t)GM * D + 2 * WARPS * GM +
                                          (size_t)WARPS * GM * D +
                                          (size_t)WARPS * 32 * GM +
@@ -433,7 +464,7 @@ cudaError_t launch(const void* q, const void* k_q, const void* k_s,
         (const float*)q, (const int8_t*)k_q, (const float*)k_s,
         (const int8_t*)v_q, (const float*)v_s, (float*)out, (float*)part_m,
         (float*)part_l, (float*)part_acc, (unsigned*)tickets, G, S, n_valid,
-        chunk, run, softmax_scale);
+        chunk, run, (const int*)pos_ptr, softmax_scale);
     return cudaGetLastError();
 }
 
@@ -442,36 +473,42 @@ cudaError_t launch_d(int G, const void* q, const void* k_q, const void* k_s,
                      const void* v_q, const void* v_s, void* out,
                      void* part_m, void* part_l, void* part_acc,
                      void* tickets, int BH, int S, int n_valid, int chunk,
-                     int run, int n_split, float softmax_scale,
+                     int run, int n_split, const void* pos_ptr,
+                     float softmax_scale,
                      cudaStream_t stream) {
     if (G == 1)
         return launch<D, 1>(q, k_q, k_s, v_q, v_s, out, part_m, part_l,
                             part_acc, tickets, BH, G, S, n_valid, chunk, run,
-                            n_split, softmax_scale, stream);
+                            n_split, pos_ptr, softmax_scale,
+                            stream);
     if (G <= 4)
         return launch<D, 4>(q, k_q, k_s, v_q, v_s, out, part_m, part_l,
                             part_acc, tickets, BH, G, S, n_valid, chunk, run,
-                            n_split, softmax_scale, stream);
+                            n_split, pos_ptr, softmax_scale,
+                            stream);
     if (G <= 8)
         return launch<D, 8>(q, k_q, k_s, v_q, v_s, out, part_m, part_l,
                             part_acc, tickets, BH, G, S, n_valid, chunk, run,
-                            n_split, softmax_scale, stream);
+                            n_split, pos_ptr, softmax_scale,
+                            stream);
     if (G <= 16)
         return launch<D, 16>(q, k_q, k_s, v_q, v_s, out, part_m, part_l,
                              part_acc, tickets, BH, G, S, n_valid, chunk, run,
-                             n_split, softmax_scale, stream);
+                             n_split, pos_ptr, softmax_scale, stream);
     return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // G <= 16 query heads per kv head and D in {8, 64, 128} (the wrapper
-// checks both); q, k_q and v_q 16-byte aligned.
+// checks both); q, k_q and v_q 16-byte aligned. pos_ptr null: the
+// host's n_valid, chunk and run; else the device plan over n_split.
 extern "C" int repro_decode_attention_int8kv(
         const void* q, const void* k_q, const void* k_s, const void* v_q,
         const void* v_s, void* out, void* part_m, void* part_l,
         void* part_acc, void* tickets, int BH, int G, int D, int S,
-        int n_valid, int chunk, int run, int n_split, float softmax_scale,
+        int n_valid, int chunk, int run, int n_split,
+        const void* pos_ptr, float softmax_scale,
         int device, void* stream) {
     if (BH <= 0 || G <= 0 || D <= 0) return 0;
     cudaError_t err = cudaSetDevice(device);
@@ -480,15 +517,17 @@ extern "C" int repro_decode_attention_int8kv(
     if (D == 8)
         err = launch_d<8>(G, q, k_q, k_s, v_q, v_s, out, part_m, part_l,
                           part_acc, tickets, BH, S, n_valid, chunk, run,
-                          n_split, softmax_scale, s);
+                          n_split, pos_ptr, softmax_scale,
+                          s);
     else if (D == 64)
         err = launch_d<64>(G, q, k_q, k_s, v_q, v_s, out, part_m, part_l,
                            part_acc, tickets, BH, S, n_valid, chunk, run,
-                           n_split, softmax_scale, s);
+                           n_split, pos_ptr, softmax_scale,
+                           s);
     else if (D == 128)
         err = launch_d<128>(G, q, k_q, k_s, v_q, v_s, out, part_m, part_l,
                             part_acc, tickets, BH, S, n_valid, chunk, run,
-                            n_split, softmax_scale, s);
+                            n_split, pos_ptr, softmax_scale, s);
     else
         err = cudaErrorInvalidValue;
     return (int)err;

@@ -21,6 +21,7 @@ from repro_torch.core.quantizers import (abs_max_scale,
                                          dequantize_log_magnitude, pack_int4,
                                          quantize)
 from repro_torch.kernels import attention_int8kv as _attn
+from repro_torch.kernels._launch import count_launch
 from repro_torch.kernels.act_quant import act_quant, kv_append_int8
 from repro_torch.kernels.edge_softmax import edge_softmax_fused
 from repro_torch.kernels.mddq_kernel import mddq_encode_kernel
@@ -29,7 +30,7 @@ from repro_torch.kernels.quant_matmul import (w4a8_matmul_f32a,
 from repro_torch.kernels.ref import edge_softmax_ref
 
 __all__ = ["prepare_w8", "prepare_w4", "quantize_activations",
-           "matmul_w8a8", "matmul_w4a8", "mddq_encode",
+           "quantized_products", "matmul_w8a8", "matmul_w4a8", "mddq_encode",
            "mddq_qdq_kernel", "edge_gather", "refine_edge_mask",
            "edge_softmax",
            "prepare_kv_int8", "append_kv_int8", "decode_attention_int8kv"]
@@ -58,16 +59,31 @@ def quantize_activations(x: torch.Tensor):
 
 # --- quantized matmul (K1 / K2) ----------------------------------------------
 
+def quantized_products():
+    """Holder of ``quantized_products.launches``: the quantized products
+    asked of the card (calls of :func:`matmul_w8a8` and
+    :func:`matmul_w4a8` on CUDA tensors, counted as the kernels count
+    their launches, captures and replays included), which each take one
+    f32-A matmul launch with the A8 step inside it."""
+
+
+quantized_products.launches = 0
+
+
 def matmul_w8a8(x: torch.Tensor, w_q: torch.Tensor,
                 w_scale: torch.Tensor) -> torch.Tensor:
     """y = x @ dequant(w) with per-row A8 activations. x: (M, K) f32,
     quantized as :func:`quantize_activations` does, in the same launch."""
+    if x.is_cuda:
+        count_launch(quantized_products)
     return w8a8_matmul_f32a(x.contiguous(), w_q, w_scale)
 
 
 def matmul_w4a8(x: torch.Tensor, w_packed: torch.Tensor,
                 w_scale: torch.Tensor) -> torch.Tensor:
     """y = x @ dequant(w); w_packed: (K, N//2) uint8 nibbles."""
+    if x.is_cuda:
+        count_launch(quantized_products)
     return w4a8_matmul_f32a(x.contiguous(), w_packed, w_scale)
 
 
@@ -208,19 +224,22 @@ def prepare_kv_int8(k: torch.Tensor, v: torch.Tensor):
     return q[0], s[0], q[1], s[1]
 
 
-def append_kv_int8(k_new, v_new, k_q, k_s, v_q, v_s, cur_index: int,
+def append_kv_int8(k_new, v_new, k_q, k_s, v_q, v_s, cur_index,
                    replicate: int = 1) -> None:
     """The LM decode's int8 KV write, in place: the new token's K and V
     rows (B, nkv, D) quantized per row as :func:`prepare_kv_int8` does and
-    stored at ``cur_index`` of the (B, nkv * replicate, S, ...) cache, one
-    kernel launch (``act_quant.kv_append_int8``)."""
+    stored at ``cur_index`` (an int, or a 0-d int32 tensor on the card) of
+    the (B, nkv * replicate, S, ...) cache, one kernel launch
+    (``act_quant.kv_append_int8``)."""
     kv_append_int8(k_new, v_new, k_q, k_s, v_q, v_s, cur_index, replicate)
 
 
-def decode_attention_int8kv(q, k_q, k_scale, v_q, v_scale, n_valid: int,
+def decode_attention_int8kv(q, k_q, k_scale, v_q, v_scale, n_valid,
                             softmax_scale: float) -> torch.Tensor:
     """One-token attention over an int8 cache, grouped layout: q (BH, G,
-    D) f32, k_q/v_q (BH, S, D) int8, scales (BH, S) f32, tokens
-    ``[0, n_valid)``; returns (BH, G, D) f32."""
+    D) f32, k_q/v_q (BH, S, D) int8, scales (BH, S) f32, the tokens
+    ``[0, n_valid)`` for an int ``n_valid``, or ``[0, p]`` for the decode
+    position ``p`` as a 0-d int32 tensor on the card; returns (BH, G, D)
+    f32."""
     return _attn.decode_attention_int8kv(q, k_q, k_scale, v_q, v_scale,
                                          n_valid, softmax_scale)

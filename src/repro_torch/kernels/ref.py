@@ -15,7 +15,8 @@ from repro_torch.core.quantizers import (quantize_log_magnitude,
 
 __all__ = ["w8a8_matmul_ref", "w4a8_matmul_ref", "nearest_code_ref",
            "mddq_encode_ref", "edge_softmax_ref", "act_quant_ref",
-           "kv_append_int8_ref", "decode_attention_int8kv_ref", "NEG_BIAS"]
+           "kv_append_int8_ref", "write_at", "decode_attention_int8kv_ref",
+           "NEG_BIAS"]
 
 NEG_BIAS = -1e9   # masked-edge logit; matches the dense forward's pair mask
 _NEAREST_CHUNK = 4096
@@ -138,7 +139,7 @@ def act_quant_ref(x: torch.Tensor):
     return q.to(torch.int8), scale
 
 
-def kv_append_int8_ref(k_new, v_new, k_q, k_s, v_q, v_s, cur_index: int,
+def kv_append_int8_ref(k_new, v_new, k_q, k_s, v_q, v_s, cur_index,
                        replicate: int = 1) -> None:
     """The LM decode's int8 KV write, in place.
 
@@ -148,6 +149,8 @@ def kv_append_int8_ref(k_new, v_new, k_q, k_s, v_q, v_s, cur_index: int,
     kv head ``h // replicate`` (``repeat_interleave``), quantized by
     :func:`act_quant_ref`; its codes go to ``q[:, h, cur_index]`` and its
     scale to ``s[:, h, cur_index]``, and nothing else in the cache changes.
+    ``cur_index`` is an int or a 0-d integer tensor on the cache's device,
+    written through with ``index_copy_`` (no host read of it).
     """
     if replicate > 1:
         k_new = torch.repeat_interleave(k_new, replicate, dim=1)
@@ -155,10 +158,20 @@ def kv_append_int8_ref(k_new, v_new, k_q, k_s, v_q, v_s, cur_index: int,
     lead, d = k_new.shape[:-1], k_new.shape[-1]
     q, s = act_quant_ref(torch.stack((k_new, v_new)).reshape(-1, d))
     q, s = q.reshape(2, *lead, d), s.reshape(2, *lead)
-    k_q[:, :, cur_index] = q[0]
-    v_q[:, :, cur_index] = q[1]
-    k_s[:, :, cur_index] = s[0]
-    v_s[:, :, cur_index] = s[1]
+    write_at(k_q, cur_index, q[0])
+    write_at(v_q, cur_index, q[1])
+    write_at(k_s, cur_index, s[0])
+    write_at(v_s, cur_index, s[1])
+
+
+def write_at(cache: torch.Tensor, index, row: torch.Tensor) -> None:
+    """``cache[:, :, index] = row`` in place, for an int ``index`` or a
+    0-d integer tensor on the cache's device (``index_copy_``, which
+    reads the index on the device: no host sync)."""
+    if isinstance(index, torch.Tensor):
+        cache.index_copy_(2, index.reshape(1).long(), row.unsqueeze(2))
+    else:
+        cache[:, :, index] = row
 
 
 # --- int8-KV decode attention -------------------------------------------------
@@ -168,12 +181,21 @@ def decode_attention_int8kv_ref(q, k_q, k_scale, v_q, v_scale, n_valid,
     """One-token decode attention over an int8 K/V cache, grouped layout.
 
     q: (BH, G, D) f32; k_q/v_q: (BH, S, D) int8; k_scale/v_scale: (BH, S)
-    f32. Attends to tokens ``[0, n_valid)``. Returns (BH, G, D) f32. With
-    G = 1 and n_valid = S it is ``repro/kernels/ref.py``'s
+    f32. Attends to tokens ``[0, n_valid)`` for an int ``n_valid``, or to
+    ``[0, p]`` for a 0-d integer tensor holding the decode position
+    ``p``; the tokens past them are masked out of the softmax (weight
+    exactly 0) rather than sliced off, so both give the same result and
+    a tensor is never read on the host. Returns (BH, G,
+    D) f32. With G = 1 and n_valid = S it is ``repro/kernels/ref.py``'s
     ``decode_attention_int8kv_ref``.
     """
-    k = k_q[:, :n_valid].to(torch.float32) * k_scale[:, :n_valid, None]
-    v = v_q[:, :n_valid].to(torch.float32) * v_scale[:, :n_valid, None]
+    k = k_q.to(torch.float32) * k_scale[..., None]
+    v = v_q.to(torch.float32) * v_scale[..., None]
     logits = torch.einsum("bgd,bsd->bgs", q, k) * softmax_scale
+    idx = torch.arange(k_q.shape[1], device=q.device)
+    valid = idx <= n_valid if isinstance(n_valid, torch.Tensor) \
+        else idx < n_valid
+    logits = torch.where(valid, logits,
+                         torch.full_like(logits, float("-inf")))
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bgs,bsd->bgd", w, v)

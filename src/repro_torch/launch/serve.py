@@ -15,7 +15,14 @@ LM decode (``--workload lm``):
 It builds the model from random weights (numpy seed), quantizes them,
 allocates the KV cache and runs a greedy decode loop from token 0 at
 position 0, then prints the weight bytes (float32 -> served), the
-KV-cache bytes and the decode rate, as the JAX launcher does. The
+KV-cache bytes and the decode rate, as the JAX launcher does. As the
+JAX launcher jits one step for every position (``cur_index`` traced),
+the card runs the first step eagerly and then one captured step per
+(batch, cache length) (``repro_torch.captured``): ``decode_step`` with
+the position read from a device buffer, ``lm_head`` and the argmax
+written into the static token buffer, replayed once per token after
+the host sets the position buffer. The CPU runs the same loop eagerly
+(:func:`greedy_decode_eager`). The
 ``--smoke`` configs run in float32, the full ones in ``cfg.dtype``
 (bf16). ``--arch`` takes every id of ``configs.ARCH_IDS``, the MoE,
 Mamba2-hybrid and xLSTM families included (the latter only with
@@ -75,11 +82,12 @@ import dataclasses
 import json
 import threading
 import time
-from typing import Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import configs
+from repro_torch.captured import CapturedProgram, copy_into, new_pool
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.guardrails import GuardrailConfig
 from repro_torch.models.lm import transformer as tfm
@@ -93,24 +101,32 @@ from repro_torch.server import (MicroBatchScheduler, SchedulerConfig,
 from repro_torch.serving import QuantizedEngine, ServeConfig, random_graphs
 
 __all__ = ["ServedLM", "DecodeRun", "lm_config", "build_lm", "decode",
-           "greedy_decode", "run_lm", "run_so3", "run_so3_server", "main"]
+           "greedy_decode", "greedy_decode_eager", "run_lm", "run_so3",
+           "run_so3_server", "main"]
 
 @dataclasses.dataclass
 class ServedLM:
     """A model ready to decode: config, served parameters, the output
-    projection made once (``transformer.lm_head``) and the byte counts."""
+    projection made once (``transformer.lm_head``) and the byte counts.
+    ``programs`` holds its captured decode steps by (batch, cache
+    length), all in one graph pool (a copy made with
+    ``dataclasses.replace`` starts with none)."""
     cfg: LMConfig
     params: tfm.Params
     head: torch.Tensor
     device: torch.device
     fp32_bytes: int
     served_bytes: int
+    programs: Dict[Tuple[int, int], CapturedProgram] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
+    graph_pool: Optional[tuple] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
 
 @dataclasses.dataclass
 class DecodeRun:
     tokens: torch.Tensor        # (B, n_tokens) generated ids
-    seconds: float              # host clock over steps 1..n_tokens-1
+    seconds: float              # host clock over steps 2..n_tokens-1
     cache_bytes: int
     steps_timed: int
 
@@ -152,38 +168,103 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def greedy_decode(lm: ServedLM, batch: int, cache_len: int, n_tokens: int,
-                  cache: Optional[tfm.Params] = None) -> DecodeRun:
-    """Greedy decode of ``n_tokens`` tokens from token 0 at position 0.
-    A non-token frontend (audio frames, image patches) is fed zero
-    embeddings (B, 1, d_model) at every step, as the JAX launcher feeds
-    its frontend stub; the argmax ids are still returned. The first step
-    warms up; the host clock runs over the other ``n_tokens - 1`` steps
-    and ends in a synchronize."""
+def _greedy_step(lm: ServedLM) -> Callable:
+    """The decode step as captured: ``decode_step`` at the device
+    position ``pos`` on ``ids`` (or on ``embeds`` for a non-token
+    frontend), then ``lm_head`` and the argmax written into ``ids``."""
+    def step(cache, ids, pos, embeds=None):
+        x = ids if embeds is None else embeds
+        ids.copy_(decode(lm, cache, x, pos).argmax(-1, keepdim=True))
+        return ids
+    return step
+
+
+def _greedy_loop(lm: ServedLM, batch: int, cache_len: int, n_tokens: int,
+                 cache: Optional[tfm.Params], captured: bool) -> DecodeRun:
     if not 1 <= n_tokens <= cache_len:
         raise ValueError(f"n_tokens={n_tokens} must be in [1, cache_len="
                          f"{cache_len}]")
     if cache is None:
         cache = tfm.init_cache(lm.cfg, batch, cache_len, lm.device)
     cache_bytes = quantized_bytes(cache)
-    embeds = None
+    inputs = {"cache": cache,
+              "ids": torch.zeros((batch, 1), dtype=torch.long,
+                                 device=lm.device),
+              # the position buffer: set from the host's counter, read by
+              # the step on the device (n_tokens <= cache_len bounds it)
+              "pos": torch.zeros((), dtype=torch.int32, device=lm.device)}
     if lm.cfg.frontend != "token":
-        embeds = torch.zeros((batch, 1, lm.cfg.d_model), dtype=lm.cfg.dtype,
-                             device=lm.device)
-    tok = torch.zeros((batch, 1), dtype=torch.long, device=lm.device)
-    out = []
-    tok = decode(lm, cache, tok if embeds is None else embeds,
-                 0).argmax(-1, keepdim=True)
-    out.append(tok)
+        inputs["embeds"] = torch.zeros((batch, 1, lm.cfg.d_model),
+                                       dtype=lm.cfg.dtype, device=lm.device)
+    step = _greedy_step(lm)
+    # the first step eagerly, at an int position
+    x = inputs.get("embeds", inputs["ids"])
+    inputs["ids"].copy_(decode(lm, cache, x, 0).argmax(-1, keepdim=True))
+    out = [inputs["ids"].clone()]
+    prog = None
+
+    def run(i: int) -> torch.Tensor:
+        """Step i's ids: eager, or the (batch, cache_len) program's."""
+        nonlocal prog
+        if not captured:
+            inputs["pos"].fill_(i)
+            return step(**inputs)
+        if prog is None:
+            prog = lm.programs.get((batch, cache_len))
+            if prog is None:
+                # captured on its first use: its eager warm-up is step i
+                if lm.graph_pool is None:
+                    lm.graph_pool = new_pool()
+                inputs["pos"].fill_(i)
+                prog = lm.programs[(batch, cache_len)] = CapturedProgram(
+                    step, inputs, device=lm.device, pool=lm.graph_pool,
+                    name=f"the {lm.cfg.name} decode step (B={batch}, "
+                         f"S={cache_len})")
+                return prog.first_result
+            # this run's cache and first token into the static buffers
+            copy_into(prog.static["cache"], cache)
+            prog.static["ids"].copy_(inputs["ids"])
+        prog.static["pos"].fill_(i)
+        return prog.replay()
+    for i in range(1, min(2, n_tokens)):
+        out.append(run(i).clone())
     _sync(lm.device)
     t0 = time.perf_counter()
-    for i in range(1, n_tokens):
-        tok = decode(lm, cache, tok if embeds is None else embeds,
-                     i).argmax(-1, keepdim=True)
-        out.append(tok)
+    for i in range(2, n_tokens):
+        out.append(run(i).clone())
     _sync(lm.device)
-    return DecodeRun(torch.cat(out, dim=1), time.perf_counter() - t0,
-                     cache_bytes, n_tokens - 1)
+    seconds = time.perf_counter() - t0
+    if prog is not None:
+        copy_into(cache, prog.static["cache"])  # the caller's cache, too
+    return DecodeRun(torch.cat(out, dim=1), seconds, cache_bytes,
+                     max(n_tokens - 2, 0))
+
+
+def greedy_decode(lm: ServedLM, batch: int, cache_len: int, n_tokens: int,
+                  cache: Optional[tfm.Params] = None) -> DecodeRun:
+    """Greedy decode of ``n_tokens`` tokens from token 0 at position 0.
+    A non-token frontend (audio frames, image patches) is fed zero
+    embeddings (B, 1, d_model) at every step, as the JAX launcher feeds
+    its frontend stub; the argmax ids are still returned. ``cache`` (one
+    of ``init_cache``'s, made here when omitted) ends holding the run's
+    keys and values. On the card the first step runs eagerly and every
+    later one replays the captured step of (batch, cache_len), captured
+    in its first run (whose step 1 is the capture's warm-up); on the CPU
+    it is :func:`greedy_decode_eager`. The first two steps warm up; the
+    host clock runs over the other ``n_tokens - 2`` steps and ends in a
+    synchronize."""
+    return _greedy_loop(lm, batch, cache_len, n_tokens, cache,
+                        captured=lm.device.type == "cuda")
+
+
+def greedy_decode_eager(lm: ServedLM, batch: int, cache_len: int,
+                        n_tokens: int,
+                        cache: Optional[tfm.Params] = None) -> DecodeRun:
+    """:func:`greedy_decode` with every step run eagerly, the position
+    (after the first step's) read from the same device buffer: the CPU's
+    path, and on the card the body the captured step replays."""
+    return _greedy_loop(lm, batch, cache_len, n_tokens, cache,
+                        captured=False)
 
 
 def run_lm(args) -> DecodeRun:
@@ -268,7 +349,8 @@ def run_so3(args):
     t0 = time.monotonic()
     engine.infer_batch(graphs)
     print(f"warmup: ran {len(engine.shapes_seen)} shape class(es) in "
-          f"{time.monotonic() - t0:.2f}s")
+          f"{time.monotonic() - t0:.2f}s ({len(engine.compiled_shapes)} "
+          "captured)")
     t0 = time.monotonic()
     results = engine.infer_batch(graphs)
     dt = time.monotonic() - t0
@@ -308,7 +390,8 @@ def run_so3_server(engine: QuantizedEngine, args):
                                 max_queue=args.max_queue)
     with MicroBatchScheduler(engine, sched_cfg) as sched:
         print(f"warmup: {sched.warmup_s:.2f}s "
-              f"({len(engine.shapes_seen)} shape classes)")
+              f"({len(engine.shapes_seen)} shape classes, "
+              f"{len(engine.compiled_shapes)} captured)")
         engine.reset_stats()    # keep the streaming phase unpolluted
         res = run_open_loop(sched, traffic, rate_rps=args.rate)
         stats = sched.stats()

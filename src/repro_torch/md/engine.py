@@ -7,7 +7,14 @@ into the wall clock. The integration loop stays on the device:
 * **velocity Verlet, one record segment at a time** — the JAX package's
   ``lax.scan`` becomes a Python loop over device tensors. Nothing inside
   a segment reads a tensor on the host; the host syncs only at record
-  checkpoints (the overflow flag, the guardrails, the record itself).
+  checkpoints (the overflow flag, the guardrails, the record itself). On
+  the card the segment is captured as a program per (replica batch
+  shape, edge capacity, segment length), the counterpart of the JAX
+  engine's ``_segment_jit`` (``repro_torch.captured``): it ends by
+  copying its new state into the static state it read, so each replay
+  advances that state in place, and ``run`` copies only the record to
+  the host. The CPU runs the segment eagerly (:meth:`MDEngine._segment`,
+  also the body a capture records).
 * **Verlet-skin neighbour lists** (``md/neighbor.py``) — built at
   ``cutoff + skin``, selected against a fresh build on the device every
   step by the displacement criterion, and refined to the true cutoff
@@ -32,10 +39,13 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.captured import (CapturedProgram, copy_into, map_tensors,
+                                  new_pool)
 from repro_torch.core.codebook import make_codebook
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.guardrails import GuardrailViolation, check_finite_tree
 from repro_torch.kernels import ops
+from repro_torch.kernels._launch import count_launch
 from repro_torch.md.neighbor import (NeighborList, build_neighbor_list,
                                      maybe_rebuild)
 from repro_torch.md.nve import _FS, _KB
@@ -45,7 +55,22 @@ from repro_torch.serving.bucketing import EDGE_LANE, count_edges
 from repro_torch.serving.forward import sparse_energy_and_forces
 from repro_torch.serving.qparams import QuantizedParams, quantize_so3_params
 
-__all__ = ["MDConfig", "ReplicaState", "MDEngine", "pad_replicas"]
+__all__ = ["MDConfig", "ReplicaState", "MDEngine", "pad_replicas",
+           "FORCE_CALLS"]
+
+
+def _force_call_counter(mode: str):
+    def counter():
+        """Holder of ``launches``: the force calls of this mode run on
+        the card, counted as the kernels count their launches (a
+        captured segment's per replay)."""
+    counter.__name__ = f"md_force_calls_{mode}"
+    counter.launches = 0
+    return counter
+
+
+# per mode: MD force calls on the card (``kernels._launch.count_launch``)
+FORCE_CALLS = {m: _force_call_counter(m) for m in ("fp32", "w8a8", "w4a8")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,6 +179,9 @@ class MDEngine:
         if codebook is None and self._quant_vec:
             codebook = make_codebook(model_cfg.dir_bits, device=self.device)
         self._codebook = codebook
+        # captured segments by (batch shape, edge capacity, length)
+        self._programs: Dict[tuple, CapturedProgram] = {}
+        self._graph_pool = None
 
     def _tensor(self, a, dtype) -> torch.Tensor:
         """An array or tensor as ``dtype`` on the engine's device (numpy
@@ -168,6 +196,8 @@ class MDEngine:
         """Quantized sparse forward at the true cutoff: the skin list's
         mask is refined to d < cutoff at these coordinates inside the
         forward, so the edge set equals a fresh rebuild's."""
+        if self.device.type == "cuda":
+            count_launch(FORCE_CALLS[self.md.mode])
         return sparse_energy_and_forces(
             self.qparams, self.model_cfg, species, coords, mask,
             nlist.senders, nlist.receivers, nlist.edge_mask,
@@ -228,6 +258,29 @@ class MDEngine:
         rec = {"e_pot": state.e_pot, "e_tot": state.e_pot + e_kin,
                "temperature_K": 2.0 * e_kin / (n_dof * _KB)}
         return state, rec
+
+    def _captured_segment(self, state: ReplicaState, species, mask, masses,
+                          length: int):
+        """:meth:`_segment` through the program of its shape: replayed, or
+        captured on first use (its eager warm-up is this call)."""
+        key = (tuple(mask.shape), state.nlist.edge_capacity, length)
+        inputs = dict(state=state, species=species, mask=mask,
+                      masses=masses)
+        prog = self._programs.get(key)
+        if prog is not None:
+            return prog.replay(**inputs)
+
+        def segment(state, species, mask, masses):
+            new, rec = self._segment(state, species, mask, masses, length)
+            copy_into(state, new)      # the next replay starts from here
+            return state, rec
+        if self._graph_pool is None:
+            self._graph_pool = new_pool()
+        prog = CapturedProgram(segment, inputs, device=self.device,
+                               pool=self._graph_pool,
+                               name=f"the MD segment {key}")
+        self._programs[key] = prog
+        return prog.first_result
 
     # -- public API ----------------------------------------------------------
 
@@ -302,10 +355,12 @@ class MDEngine:
             ) -> Tuple[ReplicaState, Dict[str, np.ndarray]]:
         """Integrate ``n_steps`` of NVE, one host sync per record.
 
-        Each ``record_every``-step segment runs with no host sync; at its
-        end the host reads the overflow flag (raising if an on-device
-        rebuild exceeded the edge capacity: the trajectory is invalid
-        past that point), runs the guardrails and keeps the record.
+        Each ``record_every``-step segment runs with no host sync (on the
+        card, a replay of its captured program); at its end the host
+        reads the overflow flag (raising if an on-device rebuild exceeded
+        the edge capacity: the trajectory is invalid past that point),
+        runs the guardrails and keeps the record. The returned state is
+        the caller's own (no program's buffer).
         Returns the final state and ``e_pot`` / ``e_tot`` /
         ``temperature_K`` arrays of shape ``(n_records, B)`` (one extra,
         shorter-interval sample covers any remainder: no step is
@@ -318,8 +373,10 @@ class MDEngine:
         lengths = [record_every] * n_records + ([tail] if tail else [])
         recs = []
         e_ref: Optional[np.ndarray] = None   # first checkpoint's e_tot
+        captured = self.device.type == "cuda"
+        segment = self._captured_segment if captured else self._segment
         for length in lengths:
-            state, rec = self._segment(state, species, mask, masses, length)
+            state, rec = segment(state, species, mask, masses, length)
             if bool(state.nlist.overflow):   # the per-checkpoint host sync
                 raise RuntimeError(
                     "skin neighbour list overflowed its edge capacity "
@@ -354,6 +411,9 @@ class MDEngine:
                             detail={"mode": self.md.mode, "value": drift,
                                     "limit": self.md.drift_limit})
             recs.append(rec)
+        if captured and lengths:
+            # the state lives in a program's static buffers: hand back a copy
+            state = map_tensors(torch.clone, state)
         records = {k: np.stack([r[k] for r in recs])
                    for k in recs[0]} if recs else {}
         records["n_rebuilds"] = int(state.nlist.n_rebuilds)

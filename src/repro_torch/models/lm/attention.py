@@ -29,13 +29,18 @@ it to XLA.
 
 The cache is updated in place: the new token's row is written at
 ``cur_index`` into the tensors the caller passed, which are also
-returned. ``cur_index`` is a Python int, and ``cur_index >= cache_len``
-raises ``ValueError`` (JAX's ``dynamic_update_index_in_dim`` would
-silently clamp it to the last row).
+returned. ``cur_index`` is a Python int, for which ``cur_index >=
+cache_len`` raises ``ValueError`` (JAX's ``dynamic_update_index_in_dim``
+would silently clamp it to the last row), or, as the reference's traced
+``cur_index``, a 0-d int32 tensor on the activations' device: RoPE, the
+mask, the cache writes (``index_copy_``) and both kernels then read it
+there, so the step never waits on the host and one captured step serves
+every position. A tensor position is not range-checked here: the caller
+that owns the host counter checks it.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -45,6 +50,7 @@ from repro_torch.core.quantizers import (pack_int4, qmax, scale_from_amax,
                                          unpack_int4)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import write_at
 from repro_torch.models.lm.layers import (apply_rope, dense_init,
                                           params_to_torch, qlinear)
 
@@ -52,6 +58,7 @@ __all__ = ["attention_arrays", "init_attention", "causal_attention",
            "init_kv_cache", "decode_attention"]
 
 Cache = Dict[str, torch.Tensor]
+Position = Union[int, torch.Tensor]
 
 
 def attention_arrays(cfg, rng: np.random.Generator,
@@ -161,7 +168,8 @@ def init_kv_cache(cfg, batch: int, seq: int, dtype: torch.dtype,
                              device=device)}
 
 
-def _append_kv_int4(k_new, v_new, cache: Cache, cur_index: int) -> None:
+def _append_kv_int4(k_new, v_new, cache: Cache, cur_index: Position
+                    ) -> None:
     """The reference's int4 KV write: per-row abs-max scale
     ``max(|row|, 1e-8) / 7`` in the activation dtype (widened to
     float32), codes ``clip(round(row / scale), -7, 7)`` packed two to a
@@ -170,26 +178,31 @@ def _append_kv_int4(k_new, v_new, cache: Cache, cur_index: int) -> None:
         s = scale_from_amax(rows.abs().amax(dim=-1), 4).to(torch.float32)
         q = torch.clamp(torch.round(rows.to(torch.float32) / s[..., None]),
                         -qmax(4), qmax(4)).to(torch.int8)
-        cache[f"{name}_q"][:, :, cur_index] = pack_int4(q)
-        cache[f"{name}_s"][:, :, cur_index] = s
+        write_at(cache[f"{name}_q"], cur_index, pack_int4(q))
+        write_at(cache[f"{name}_s"], cur_index, s)
 
 
 def decode_attention(params, x: torch.Tensor, cfg, cache: Cache,
-                     cur_index: int):
+                     cur_index: Position):
     """One decode step. x: (B, 1, d); the cache holds ``cache_len`` past
     tokens. Writes the new token's K/V at ``cur_index`` (the same
-    position for every batch row) in place and attends to positions
-    ``[0, cur_index]``. Returns (out (B, 1, d), cache).
+    position for every batch row; an int or a 0-d int32 tensor on x's
+    device) in place and attends to positions ``[0, cur_index]``.
+    Returns (out (B, 1, d), cache).
 
-    Raises ``ValueError`` when ``cur_index`` is not in ``[0, cache_len)``.
+    Raises ``ValueError`` when an int ``cur_index`` is not in ``[0,
+    cache_len)``.
     """
     B = x.shape[0]
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     seq = (cache["k_q"] if cfg.kv_quant else cache["k"]).shape[2]
-    if not 0 <= cur_index < seq:
-        raise ValueError(f"cur_index={cur_index} outside the cache's "
-                         f"[0, {seq}) positions")
-    positions = torch.full((B, 1), cur_index, device=x.device)
+    if isinstance(cur_index, torch.Tensor):
+        positions = cur_index.reshape(1, 1).expand(B, 1)
+    else:
+        if not 0 <= cur_index < seq:
+            raise ValueError(f"cur_index={cur_index} outside the cache's "
+                             f"[0, {seq}) positions")
+        positions = torch.full((B, 1), cur_index, device=x.device)
     q, k_new, v_new, scale = _project_qkv(params, x, cfg, positions)
     k_new = k_new[:, 0]                              # (B, kv, hd)
     v_new = v_new[:, 0]
@@ -208,7 +221,8 @@ def decode_attention(params, x: torch.Tensor, cfg, cache: Cache,
                                                                       seq),
             cache["v_q"].reshape(rows, seq, hd), cache["v_s"].reshape(rows,
                                                                       seq),
-            cur_index + 1, scale)
+            cur_index if isinstance(cur_index, torch.Tensor)
+            else cur_index + 1, scale)
         return qlinear(out.to(x.dtype).reshape(B, 1, nh * hd), params["wo"],
                        cfg.quant_mode), cache
 
@@ -223,8 +237,8 @@ def decode_attention(params, x: torch.Tensor, cfg, cache: Cache,
         v = (unpack_int4(cache["v_q"]).to(x.dtype)
              * cache["v_s"][..., None].to(x.dtype))
     else:
-        cache["k"][:, :, cur_index] = k_new.to(cache["k"].dtype)
-        cache["v"][:, :, cur_index] = v_new.to(cache["v"].dtype)
+        write_at(cache["k"], cur_index, k_new.to(cache["k"].dtype))
+        write_at(cache["v"], cur_index, v_new.to(cache["v"].dtype))
         k, v = cache["k"], cache["v"]
     logits = torch.einsum("bkgd,bksd->bkgs", q, k) * scale
     valid = torch.arange(seq, device=x.device) <= cur_index

@@ -31,7 +31,7 @@ no gradient from autograd, where JAX gives zeros:
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -268,13 +268,17 @@ def lm_loss(params: Params, cfg: LMConfig,
 
 
 def decode_step(params: Params, cfg: LMConfig, cache: Params,
-                tokens: torch.Tensor, cur_index: int,
+                tokens: torch.Tensor, cur_index: Union[int, torch.Tensor],
                 head: Optional[torch.Tensor] = None):
     """One decode step. tokens: (B, 1) integer ids, or (B, 1, d)
     embeddings for non-token frontends; ``cur_index``: the position this
     token takes, a Python int in ``[0, cache_len)`` (``ValueError``
-    otherwise, where a KV cache is written). Updates ``cache`` in place;
-    returns (logits (B, V) f32, cache). ``head`` is :func:`lm_head`'s
+    otherwise, where a KV cache is written) or, as the reference's traced
+    ``cur_index``, a 0-d int32 tensor on the model's device, which the
+    step reads only there (no host sync; the caller checks its range).
+    The recurrent blocks (Mamba2, mLSTM, sLSTM) take no position. The
+    same position gives the same result either way. Updates ``cache`` in
+    place; returns (logits (B, V) f32, cache). ``head`` is :func:`lm_head`'s
     result, made here when omitted. A MoE block routes the step's B
     tokens as one group (see ``moe.py``).
     """

@@ -31,7 +31,9 @@ Policy:
   its own molecule's result;
 * **no new shape under traffic** — the scheduler calls
   ``engine.warmup()`` at start by default; every shape a flush can
-  produce is in the engine's admissible set (``engine.shapes_seen``).
+  produce is in the engine's admissible set (``engine.shapes_seen``),
+  and on the card captured as a program (``engine.compiled_shapes``),
+  so a flush replays one.
 
 The worker thread owns the engine and issues every kernel launch of a
 flush. Before its loop it makes the engine's card the thread's current

@@ -19,14 +19,27 @@ masking of padded atoms.
     results = engine.infer_batch([Graph(species, coords), ...])
 
 The engine runs on CUDA unless ``device="cpu"`` is passed (then every
-kernel runs its plain PyTorch version). ``from_quantized`` builds it
+kernel runs its plain PyTorch version). On the card each shape class,
+(path, batch rows, bucket[, edge slots]), is served by a captured
+program (``repro_torch.captured``), the counterpart of the JAX engine's
+jitted forwards: the forward and its autograd backward (the forces) as
+one CUDA graph, captured in ``warmup`` or, for a shape warmup did not
+cover, on its first dispatch (timed into
+``engine_warmup_compile_seconds``, as a jit compile is), and replayed
+after that. Host prep, the edge list, the host-to-device copies and the
+guardrails stay outside the graph. The CPU runs the same forward
+functions eagerly (:meth:`QuantizedEngine._eager_dense`,
+:meth:`QuantizedEngine._eager_sparse`, also the body a capture
+records). ``from_quantized`` builds it
 from serving-format weights with no fp32 tree (the packed-artifact cold
 start, ``server.artifact``); ``md_engine()`` hands the quantized weights
 and codebook to an ``md.MDEngine``. The serving hooks the scheduler
 reads are the JAX engine's: ``last_infer_breakdown``, ``warmup_report``,
 ``guard_stats`` (with the sampled LEE probe of the guardrails) and the
-registry counters of ``obs.metrics``; ``shapes_seen`` stands where the
-JAX engine keeps ``compiled_shapes``.
+registry counters of ``obs.metrics``; ``compiled_shapes`` holds the
+captured shape classes, as the JAX engine's holds its compiled ones
+(empty on the CPU, which captures nothing), and ``shapes_seen`` every
+shape class run on either device.
 """
 from __future__ import annotations
 
@@ -37,6 +50,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.captured import CapturedProgram, new_pool
 from repro_torch.core.codebook import make_codebook
 from repro_torch.core.lee import random_rotations
 from repro_torch.device import DeviceLike, resolve_device
@@ -177,10 +191,15 @@ class QuantizedEngine:
                             "flagged_outlier": 0, "flagged_lee": 0,
                             "lee_probes": 0}
         self._n_infer_calls = 0             # LEE probe sampling counter
-        # every (path, shape) the forwards have run: the counterpart of
-        # the JAX engine's compiled_shapes (steady traffic after warmup
-        # adds none)
+        # every (path, shape) the forwards have run, and those captured
+        # as programs (the JAX engine's compiled_shapes; on the card both
+        # hold the same classes, and steady traffic after warmup adds
+        # none)
         self.shapes_seen = set()
+        self.compiled_shapes = set()
+        self._programs: Dict[tuple, CapturedProgram] = {}
+        self._graph_pool = None
+        self._warming = False
         # the registry carries the same counts under the JAX names and
         # labels, accumulating across engines; the dicts above stay the
         # per-engine view that reset_stats zeroes
@@ -256,10 +275,11 @@ class QuantizedEngine:
                batch_sizes: Optional[Sequence[int]] = None) -> float:
         """Run every admissible (bucket, batch class) shape once on every
         path this config can dispatch (dense always: it is the overflow
-        fallback), which builds the CUDA kernels on first use. There is no
-        compilation per shape. Returns the seconds spent;
-        ``warmup_report`` holds one entry per (bucket, batch size, path),
-        each ended by a synchronize."""
+        fallback), which builds the CUDA kernels on first use, and on the
+        card captures each as a program (the run is the capture's eager
+        warm-up). Returns the seconds spent; ``warmup_report`` holds one
+        entry per (bucket, batch size, path), each ended by a
+        synchronize."""
         t0 = time.monotonic()
         self.warmup_report = []
 
@@ -276,6 +296,17 @@ class QuantizedEngine:
 
         caps = list(buckets) if buckets else [b.capacity
                                               for b in self._buckets]
+        self._warming = True
+        try:
+            self._warm(caps, batch_sizes, timed)
+        finally:
+            self._warming = False
+        total = time.monotonic() - t0
+        REGISTRY.counter("engine_warmup_seconds_total",
+                         mode=self.serve.mode).inc(total)
+        return total
+
+    def _warm(self, caps, batch_sizes, timed) -> None:
         for cap in caps:
             spec = next(b for b in self._buckets if b.capacity == cap)
             sizes = (list(batch_sizes) if batch_sizes else
@@ -292,10 +323,6 @@ class QuantizedEngine:
                                          spec.edges)
                     timed("sparse", cap, bsz,
                           lambda: self._run_sparse(species, coords, mask, el))
-        total = time.monotonic() - t0
-        REGISTRY.counter("engine_warmup_seconds_total",
-                         mode=self.serve.mode).inc(total)
-        return total
 
     def _sync(self) -> None:
         """Wait for this engine's own work: the current stream of its
@@ -304,24 +331,75 @@ class QuantizedEngine:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
-    def _on_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+    def _eager_dense(self, species, coords, mask):
+        """The dense forward and its backward on device tensors: the CPU's
+        path and the body of a dense program."""
+        return batched_energy_and_forces(
+            self.qparams, self.model_cfg, species, coords, mask,
+            self._codebook, quant_vectors=self._quant_vec,
+            mddq_kernel=self.serve.mddq_kernel)
+
+    def _eager_sparse(self, species, coords, mask, senders, receivers,
+                      edge_mask):
+        """The sparse forward and its backward on device tensors: the
+        CPU's path and the body of a sparse program."""
+        return sparse_energy_and_forces(
+            self.qparams, self.model_cfg, species, coords, mask, senders,
+            receivers, edge_mask, self._codebook,
+            quant_vectors=self._quant_vec,
+            mddq_kernel=self.serve.mddq_kernel)
 
     def _run_dense(self, species, coords, mask):
-        self.shapes_seen.add(("dense",) + species.shape)
-        arrays = [self._on_device(a) for a in (species, coords, mask)]
-        return batched_energy_and_forces(
-            self.qparams, self.model_cfg, *arrays, self._codebook,
-            quant_vectors=self._quant_vec, mddq_kernel=self.serve.mddq_kernel)
+        key = ("dense",) + species.shape
+        return self._run(key, self._eager_dense, dict(
+            species=species, coords=coords, mask=mask))
 
     def _run_sparse(self, species, coords, mask, el):
-        self.shapes_seen.add(("sparse",) + species.shape
-                             + (el.edge_capacity,))
-        arrays = [self._on_device(a) for a in (
-            species, coords, mask, el.senders, el.receivers, el.edge_mask)]
-        return sparse_energy_and_forces(
-            self.qparams, self.model_cfg, *arrays, self._codebook,
-            quant_vectors=self._quant_vec, mddq_kernel=self.serve.mddq_kernel)
+        key = ("sparse",) + species.shape + (el.edge_capacity,)
+        return self._run(key, self._eager_sparse, dict(
+            species=species, coords=coords, mask=mask, senders=el.senders,
+            receivers=el.receivers, edge_mask=el.edge_mask))
+
+    def _run(self, key: tuple, eager, arrays: Dict[str, np.ndarray]):
+        """One padded batch of shape class ``key``: eager on the CPU; on
+        the card the class's program replayed, or captured first (timed
+        into ``engine_warmup_compile_seconds``, as the JAX engine's jit
+        compiles a shape on first call)."""
+        self.shapes_seen.add(key)
+        host = {k: torch.from_numpy(a) for k, a in arrays.items()}
+        if self.device.type != "cuda":
+            return eager(**host)
+        prog = self._programs.get(key)
+        if prog is not None:
+            return prog.replay(**host)
+        s0 = time.monotonic()
+        prog = self._capture(key, eager, host)
+        if not self._warming:        # warmup times its own entries
+            REGISTRY.histogram("engine_warmup_compile_seconds",
+                               mode=self.serve.mode,
+                               path=key[0]).observe(time.monotonic() - s0)
+        return prog.first_result
+
+    def _eager_run(self, key: tuple, eager, arrays: Dict[str, np.ndarray]):
+        """:meth:`_run` without programs: the eager forward on the
+        engine's device (the CPU's path; on the card for comparisons)."""
+        self.shapes_seen.add(key)
+        return eager(**{k: torch.from_numpy(a).to(self.device)
+                        for k, a in arrays.items()})
+
+    def _capture(self, key: tuple, eager, host) -> CapturedProgram:
+        """Capture shape class ``key``'s program (its eager warm-up runs
+        on ``host``'s values) into the engine's graph pool."""
+        if self._graph_pool is None:
+            self._graph_pool = new_pool()
+        prog = CapturedProgram(eager, host, device=self.device,
+                               pool=self._graph_pool,
+                               name=f"the {self.serve.mode} engine's "
+                                    f"{key} program")
+        self._programs[key] = prog
+        self.compiled_shapes.add(key)
+        return prog
+
 
     def _sparse_profitable(self, spec: BucketSpec) -> bool:
         """n^2 pairwise work >= 4x the padded edge slots."""

@@ -891,3 +891,202 @@ def test_qat_step_on_card_matches_cpu(cuda):
         moved = sum(int((a != b).sum()) for a, b in zip(codes["cuda"],
                                                          codes["cpu"]))
         assert moved > 0, (rel, worst)
+
+
+# --- captured programs (CUDA graphs) and the device position -----------------
+
+@pytest.mark.parametrize("cur", [0, 7, 15])
+def test_kv_append_int8_device_position(cuda, cur):
+    """K5's KV entry reading its position from device memory: the whole
+    cache byte for byte against the plain version at the int position."""
+    g = torch.Generator(device=cuda).manual_seed(cur)
+    k, v = (torch.randn(3, 2, 64, generator=g, device=cuda)
+            for _ in range(2))
+    got = [torch.full((3, 2, 16, 64), -128, dtype=torch.int8, device=cuda),
+           torch.zeros((3, 2, 16), device=cuda)]
+    got = [got[0], got[1], got[0].clone(), got[1].clone()]
+    want = [t.clone() for t in got]
+    kv_append_int8(k, v, *got,
+                   torch.tensor(cur, dtype=torch.int32, device=cuda))
+    ref.kv_append_int8_ref(k, v, *want, cur)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("rows,grp,hd,s,n_valid", [
+    (16, 7, 64, 1024, 1), (16, 7, 64, 1024, 64), (16, 7, 64, 1024, 1024),
+    (8, 8, 128, 288, 37), (16, 8, 128, 1024, 288)])
+def test_decode_attention_device_position(cuda, rows, grp, hd, s, n_valid):
+    """K6 with the position on the device (the grid sized from S, each
+    block the host's plan of the n_valid it reads) within 1e-5 of its
+    plain version, and bit for bit the int entry's result."""
+    g = torch.Generator(device=cuda).manual_seed(n_valid)
+    q = torch.randn(rows, grp, hd, generator=g, device=cuda)
+    kv = ops.prepare_kv_int8(
+        torch.randn(rows, s, hd, generator=g, device=cuda) * 2,
+        torch.randn(rows, s, hd, generator=g, device=cuda))
+    pos = torch.tensor(n_valid - 1, dtype=torch.int32, device=cuda)
+    got = decode_attention_int8kv(q, *kv, pos, hd ** -0.5)
+    want = ref.decode_attention_int8kv_ref(q, *kv, n_valid, hd ** -0.5)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    # each block takes the host's plan of the n_valid it reads
+    assert torch.equal(got, decode_attention_int8kv(q, *kv, n_valid,
+                                                    hd ** -0.5))
+
+
+def test_captured_k6_owns_its_ticket_buffer(cuda):
+    """A captured K6 call keeps its split-combine tickets for the life of
+    its program: K6 captured at 16 rows (8 live splits), then captured
+    and run eagerly at 512 rows on the same thread (a larger ticket
+    buffer), with the capture stream's small blocks then filled with
+    nonzero words; the first program's replays still equal its eager
+    call bit for bit."""
+    from repro_torch.captured import CapturedProgram, _capture_stream
+    g = torch.Generator(device=cuda).manual_seed(5)
+
+    def inputs(rows):
+        kv = ops.prepare_kv_int8(
+            torch.randn(rows, 1024, 64, generator=g, device=cuda) * 2,
+            torch.randn(rows, 1024, 64, generator=g, device=cuda))
+        return {"q": torch.randn(rows, 7, 64, generator=g, device=cuda),
+                "kv": kv,
+                "pos": torch.tensor(1000, dtype=torch.int32, device=cuda)}
+
+    def fn(q, kv, pos):
+        return decode_attention_int8kv(q, *kv, pos, 0.125)
+    small, large = inputs(16), inputs(512)
+    first = CapturedProgram(fn, small, device=cuda, name="K6 at 16 rows")
+    second = CapturedProgram(fn, large, device=cuda, name="K6 at 512 rows")
+    want_large = fn(**large)
+    with torch.cuda.stream(_capture_stream(torch.device(cuda))):
+        junk = [torch.full((256,), 7, dtype=torch.int32, device=cuda)
+                for _ in range(256)]
+    torch.cuda.synchronize()
+    want = fn(**small)
+    for _ in range(3):
+        assert torch.equal(first.replay(), want)
+    assert torch.equal(second.replay(), want_large)
+    assert len(junk) == 256
+
+
+def _spread(runs, i):
+    return max(float((a[i] - b[i]).abs().max())
+               for a in runs for b in runs)
+
+
+@pytest.mark.parametrize("path", ["sparse", "dense"])
+def test_replayed_so3_batch_matches_eager(cuda, path):
+    """The engine's captured program of a batch against its eager
+    functions on the same padded batch: energies bit for bit (the forward
+    sums in a fixed order), forces within twice the largest gap between
+    five eager runs (the sparse backward's index_add sums with atomics)."""
+    from repro_torch.serving import pad_graphs, plan_batches
+    cfg = So3kratesConfig(feat=16, vec_feat=4, n_layers=2, n_rbf=4,
+                          dir_bits=6, cutoff=3.0)
+    eng = QuantizedEngine.from_config(cfg, serve=ServeConfig(
+        mode="w4a8", path=path, bucket_sizes=(16,), max_batch=4,
+        mddq_kernel=True), device=cuda)
+    eng.warmup()
+    assert eng.compiled_shapes == eng.shapes_seen and eng._programs
+    graphs = random_graphs(4, 6, 14, cfg.n_species, seed=2)
+    plan = plan_batches(graphs, eng.serve.buckets())[0]
+    sp, co, mask = pad_graphs(graphs, plan)
+    if path == "sparse":
+        el = build_edge_list(co, mask, cfg.cutoff, plan.bucket.edges)
+        run = lambda: eng._run_sparse(sp, co, mask, el)  # noqa: E731
+    else:
+        run = lambda: eng._run_dense(sp, co, mask)  # noqa: E731
+    replayed = [t.cpu() for t in run()]
+    eager = []
+    for _ in range(5):
+        eng._run = eng._eager_run
+        try:
+            eager.append([t.cpu() for t in run()])
+        finally:
+            del eng._run
+    assert torch.equal(replayed[0], eager[0][0])
+    assert float((replayed[1] - eager[0][1]).abs().max()) \
+        <= 2 * _spread(eager, 1)
+    shapes = set(eng.compiled_shapes)
+    eng.infer_batch(graphs)
+    assert eng.compiled_shapes == shapes
+
+
+def test_replayed_md_segment_matches_eager(cuda):
+    cfg = So3kratesConfig(feat=16, vec_feat=4, n_layers=2, n_rbf=4,
+                          dir_bits=6, cutoff=3.0)
+    rng = np.random.default_rng(5)
+    sp = rng.integers(0, cfg.n_species, 20).astype(np.int32)
+    co = rng.uniform(0, (20 / 0.1) ** (1 / 3), size=(20, 3)).astype(
+        np.float32)
+    spec, coords, mask = pad_replicas(sp, co, 2)
+    masses = np.full(20, 12.0, np.float32)
+    eng = MDEngine(cfg, md=MDConfig(mode="w8a8", dt_fs=0.25, skin=0.1,
+                                    quant_vectors=False), device=cuda)
+    st = eng.init_state(3, spec, coords, mask, masses, 300.0)
+    s_t, m_t, ms_t = eng.device_inputs(spec, mask, masses)
+    eng._captured_segment(st, s_t, m_t, ms_t, 5)             # captures
+    assert len(eng._programs) == 1
+
+    def out(res):
+        new, rec = res
+        return [new.coords.cpu(), rec["e_tot"].cpu()]
+    replayed = out(eng._captured_segment(st, s_t, m_t, ms_t, 5))
+    eager = [out(eng._segment(st, s_t, m_t, ms_t, 5)) for _ in range(3)]
+    for i in range(2):
+        scale = float(eager[0][i].abs().max())
+        gap = float((replayed[i] - eager[0][i]).abs().max())
+        spread = max(_spread(eager, j) / float(eager[0][j].abs().max())
+                     for j in range(2))
+        assert gap <= 2 * spread * scale
+    # run() replays, and hands back a state of its own
+    st2, rec = eng.run(st, spec, mask, masses, n_steps=10, record_every=5)
+    prog = next(iter(eng._programs.values()))
+    assert st2.coords.data_ptr() != prog.static["state"].coords.data_ptr()
+    assert np.isfinite(rec["e_tot"]).all()
+
+
+def test_replayed_decode_step_matches_eager(cuda):
+    """The captured greedy decode (the step at a device position, lm_head
+    and the argmax into the static ids) against the eager loop: the same
+    tokens and, bit for bit, the same cache."""
+    cfg = serve.lm_config("qwen2-0.5b", smoke=True, quant="serve_w8a8",
+                          kv_quant=True)
+    lm = serve.build_lm(cfg, seed=0, device=cuda)
+    caches = [init_cache(cfg, 3, 16, cuda) for _ in range(3)]
+    before = kv_append_int8.launches
+    runs = [serve.greedy_decode(lm, 3, 16, 12, cache=caches[0]),
+            serve.greedy_decode_eager(lm, 3, 16, 12, cache=caches[1]),
+            serve.greedy_decode(lm, 3, 16, 12, cache=caches[2])]
+    assert (3, 16) in lm.programs
+    assert all(torch.equal(r.tokens, runs[0].tokens) for r in runs)
+    for c in caches[1:]:
+        for name in ("k_q", "k_s", "v_q", "v_s"):
+            assert torch.equal(c["blocks"][name], caches[0]["blocks"][name])
+    # every step launches once per layer, captured or not
+    assert kv_append_int8.launches - before == 3 * 12 * cfg.n_layers
+
+
+def test_replay_launches_match_the_profiler(cuda):
+    """One replayed decode step: the launches the capture recorded equal
+    the profiler's kernels by name, and a replay adds them to the
+    counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = serve.lm_config("qwen2-0.5b", smoke=True, quant="serve_w8a8",
+                          kv_quant=True)
+    lm = serve.build_lm(cfg, seed=0, device=cuda)
+    serve.greedy_decode(lm, 2, 8, 3)
+    prog = lm.programs[(2, 8)]
+    counts = prog.launch_counts()
+    assert counts["kv_append_int8"] == counts[
+        "decode_attention_int8kv"] == cfg.n_layers
+    before = decode_attention_int8kv.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prog.replay()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert sum("kv_append_kernel" in n for n in names) == cfg.n_layers
+    assert sum("decode_kernel<" in n for n in names) == cfg.n_layers
+    assert decode_attention_int8kv.launches - before == cfg.n_layers

@@ -78,6 +78,14 @@ def test_the_distribution_modules_are_imported():
             "repro_torch.launch.dryrun"} <= set(_modules())
 
 
+def test_the_capture_module_is_imported():
+    """The import check above covers the captured programs (the served
+    loops' CUDA graphs), which import no CUDA at module import."""
+    assert "repro_torch.captured" in set(_modules())
+    from repro_torch import captured
+    assert captured._STREAMS == {}
+
+
 def test_no_source_file_imports_jax_or_repro():
     offenders = []
     for path in PKG.rglob("*.py"):

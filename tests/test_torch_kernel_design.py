@@ -10,10 +10,14 @@ K3's 32-ary search must find the same segments as a lower bound and its
 chunked softmax must stay within 1e-6 of the plain version; the band
 search's plain model (seed window, certificate,
 rescan of the z-band) must give the full search's codes exactly, and
-K6's split arithmetic must cover every valid token once, with the
+K6's split arithmetic must cover every valid token once, under the
+host's plan and under the device plan of a position read on the card
+(splits sized from the cache length, each block's chunk the host's plan
+of the n_valid it reads, for every n_valid up to the cache length), with the
 kernel's decomposition (per-warp online softmax, warps merged in order,
-splits combined in order) within 1e-5 of the plain version, K6's gate on
-the card. The KV write's warp/lane map must store every element and
+the live splits combined in order; a split past the valid tokens, which
+the kernel skips, would weigh exactly 0) within 1e-5 of the plain
+version, K6's gate on the card. The KV write's warp/lane map must store every element and
 scale of the slot exactly once from the right kv head's row, and the
 codes it gives must equal the plain version's bit for bit.
 """
@@ -30,7 +34,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import quant_matmul as qmm
 from repro_torch.kernels.act_quant import (KV_HEAD_DIMS, elems_per_lane,
                                            kv_append_lane_map)
-from repro_torch.kernels.attention_int8kv import (n_splits, split_plan,
+from repro_torch.kernels.attention_int8kv import (device_split_plan,
+                                                  n_splits, split_plan,
                                                   warp_token_ranges)
 from repro_torch.kernels.edge_softmax import (chunked_softmax_model,
                                               segment_bounds_model)
@@ -168,16 +173,46 @@ class TestDecodeSplits:
         assert split_plan(16, 2048) == (16, 128, 32)
         assert n_splits(300, 2048) == 1
 
+    @pytest.mark.parametrize("rows,seq", [(16, 1024), (8, 288), (16, 288),
+                                          (64, 32), (1, 2048), (300, 100)])
+    def test_device_plan_takes_every_token_once(self, rows, seq):
+        """A position read on the device: the grid's splits come from the
+        cache length, and for every n_valid in 1..seq each block's chunk
+        and warp runs, derived in the block, take every valid token once;
+        the splits past them are empty."""
+        splits = n_splits(rows, seq)
+        for n_valid in range(1, seq + 1):
+            s, chunk, run = device_split_plan(rows, seq, n_valid)
+            assert s == splits and chunk % 32 == 0 and run % 32 == 0
+            seen = np.zeros(n_valid, dtype=np.int64)
+            live = set()
+            for y, w, begin, end in warp_token_ranges(rows, n_valid, seq):
+                if end > begin:
+                    seen[begin:end] += 1
+                    live.add(y)
+            assert (seen == 1).all(), n_valid
+            # the host's plan of n_valid: its splits live, within the grid
+            host = split_plan(rows, n_valid)
+            assert (chunk, run) == host[1:] and host[0] <= splits
+            assert live == set(range(host[0]))
 
-def _kernel_model(q, k_q, k_s, v_q, v_s, n_valid, scale):
+    def test_device_plan_at_the_decode_shape(self):
+        # 16 rows over 1,024 slots: a grid of 8 splits at every position,
+        # one of them live up to 128 tokens
+        assert [device_split_plan(16, 1024, n) for n in (1, 64, 1024)] \
+            == [(8, 32, 32), (8, 64, 32), (8, 128, 32)]
+
+
+def _kernel_model(q, k_q, k_s, v_q, v_s, n_valid, scale, seq=None):
     """K6's decomposition in float32: per warp an online softmax over
-    32-token steps, the block's warps merged in order, the splits
-    combined in order."""
+    32-token steps, the block's warps merged in order (an empty one, or
+    a whole empty block under the device plan of ``seq`` slots, weighs
+    exactly 0), the splits combined in order."""
     bh = q.shape[0]
     k = k_q.float() * k_s[..., None]
     v = v_q.float() * v_s[..., None]
     parts = {}
-    for y, w, begin, end in warp_token_ranges(bh, n_valid):
+    for y, w, begin, end in warp_token_ranges(bh, n_valid, seq):
         m = torch.full(q.shape[:2], -math.inf)
         l = torch.zeros(q.shape[:2])
         acc = torch.zeros(q.shape)
@@ -195,7 +230,8 @@ def _kernel_model(q, k_q, k_s, v_q, v_s, n_valid, scale):
 
     def merge(states):
         mx = torch.stack([s[0] for s in states]).amax(0)
-        e = [torch.exp(s[0] - mx) for s in states]
+        e = [torch.where(mx == -math.inf, 0.0, torch.exp(s[0] - mx))
+             for s in states]
         return (mx, sum(s[1] * ei for s, ei in zip(states, e)),
                 sum(s[2] * ei[..., None] for s, ei in zip(states, e)))
     _, l, acc = merge([merge(parts[y]) for y in sorted(parts)])
@@ -203,6 +239,18 @@ def _kernel_model(q, k_q, k_s, v_q, v_s, n_valid, scale):
 
 
 class TestDecodeMerge:
+    @pytest.mark.parametrize("n_valid", [1, 33, 64, 200, 1024])
+    def test_device_plan_matches_the_plain_version(self, n_valid):
+        rng = np.random.default_rng(n_valid + 1)
+        bh, g, s, d = 16, 7, 1024, 64
+        q = torch.from_numpy(rng.normal(size=(bh, g, d)).astype(np.float32))
+        k, v = (torch.from_numpy(rng.normal(size=(bh, s, d))
+                                 .astype(np.float32)) for _ in range(2))
+        kv = ops.prepare_kv_int8(2 * k, v)
+        got = _kernel_model(q, *kv, n_valid, d ** -0.5, seq=s)
+        want = ref.decode_attention_int8kv_ref(q, *kv, n_valid, d ** -0.5)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
     @pytest.mark.parametrize("n_valid", [1, 31, 33, 64, 65, 200, 2048])
     def test_matches_the_plain_version(self, n_valid):
         rng = np.random.default_rng(n_valid)
