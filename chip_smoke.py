@@ -157,7 +157,15 @@
    share, each beside the card's name and power limit.
 8. Trains the SO3 force field on the card through
    ``repro_torch.training`` at the paper's width, as
-   ``python -m repro_torch.training.pipeline --fast`` runs it: the
+   ``python -m repro_torch.training.pipeline --fast`` runs it, every
+   step, evaluation batch, LEE force call and NVE segment through its
+   captured program (``captured.Programs``, the reference's jitted
+   programs; their captures and replays tallied by program and key, and
+   each program required to replay: the evaluation batch in batches of
+   EVAL_HOLD_BATCH, the pipeline's 32 test frames being one batch):
+   first, before any capture, the host time of one eager full QAT step
+   split by ``host_split`` (Python, the autograd engine, ATen and DTensor
+   dispatch, K4's wrapper and checks, the final read); then the
    azobenzene MD set sampled on the card (96 + 32 frames, numpy seed 0),
    fp32 15 epochs at batch 32, then gaq_w4a8 QAT (12-bit codebook) for 6
    epochs, 2 of them warm-up, with the LEE term over 2 rotations; then
@@ -181,10 +189,23 @@
    K4's codes against its plain version at the training batch (12,288
    vectors x 4,096 codewords) and at a LEE force call; the serving
    kernels at the served batch (``check_kernel_calls``); the parameter
-   file bit for bit; the phase within 180 s. Prints ms per fp32, warm-up
-   and full QAT step, a full step's device busy and idle share, K4's
-   device time at the training shape, the peak device memory, the MAEs
-   in meV, the LEEs, the NVE drift and the served-vs-QAT gap (reported).
+   file bit for bit; the phase within 180 s. The captured programs
+   against eager: per step kind (fp32, QAT warm-up, QAT full; the first
+   training batch) and for a NVE_HOLD_STEPS-step NVE segment of the
+   trained model, the program captured and replayed from one state
+   against five eager runs of its body from it (``hold_step``: every
+   output and state leaf bit for bit where the eager runs agree, else
+   within twice their largest gap), its recorded launches (K4 0, 0, L x
+   5 and L x (steps + 1)) against the profiler's over one replay, a
+   replay under sync-debug "error", ms per step eager against replay
+   (paired: eager, replay, replay, eager), the idle share of a replay,
+   capture and instantiation seconds and graph-pool bytes; and
+   ``evaluate`` (batches of EVAL_HOLD_BATCH) and ``lee_eval`` (4 x 4)
+   captured against five eager runs of each. Prints ms per fp32, warm-up
+   and full QAT step through ``train`` and paired, a full step's device
+   busy and idle share, K4's device time at the training shape, the peak
+   device memory, the MAEs in meV, the LEEs, the NVE drift and the
+   served-vs-QAT gap (reported).
 9. Runs the health plane (``repro_torch.obs``) over the served cluster.
    (a) The serve CLI over phase 6's artifact and traffic (400 Poisson
    requests at 100 req/s, numpy seed 0) with ``--tiers
@@ -248,14 +269,26 @@
    card's name and power limit.
 11. Trains the dense LM (``launch/train.py`` -> ``steps.make_train_step``
    -> ``lm_loss`` -> ``ef_compress`` -> ``AdamW``; no kernel of the port is
-   on this path, as none of the reference's is). (a) ``train.main`` in
+   on this path, as none of the reference's is). (a0) The launcher's step
+   as ``train.main`` builds it (``make_body``; qwen2-0.5b at full width
+   and depth, qat_w4a8 with ef8, DTensors on the local (1, 1) NCCL mesh),
+   before any capture: the host time of one eager step split by
+   ``host_split``; then its program (``captured.Programs``) held against
+   five eager runs from one state (the loss and every new parameter, as
+   phase 8's steps), no kernel of the port in the profile of one replay,
+   a replay under sync-debug "error", ms per step eager against replay
+   (paired), the idle share of a replay and of an eager step (the
+   replay's device busy, the same kernels, over each one's host time),
+   capture and instantiation seconds, graph-pool bytes and peak device
+   memory. (a) ``train.main`` in
    this process, as a user calls it: qwen2-0.5b at full width and depth
    (24 layers, d_model 896, vocab 151,936, tied; bf16 activations,
    float32 parameters), ``--steps 20 --batch 8 --seq 256 --quant qat_w4a8
    --grad-compression ef8``, counted: every kernel's launches 0, every
    logged loss finite, the launcher's own last < first, the final
    checkpoint restored with every digest verified and its ``extra["loss"]``
-   the last loss, no data thread left. Prints ms per step from the
+   the last loss, no data thread left, the step captured once and
+   replayed at every later step. Prints ms per step from the
    launcher's clock (steps 10 to 19), tokens/s, peak device memory, one
    profiled ``make_train_step`` call (device busy, idle share, the ten
    longest kernel groups) and the step's bound (``train_work``: three
@@ -460,6 +493,9 @@ REPLAY_TRACE = 1e-4
 TRAIN_FRAMES, TEST_FRAMES, TRAIN_BATCH = 96, 32, 32
 FP32_EPOCHS, QAT_EPOCHS, QAT_WARMUP, NVE_STEPS = 15, 6, 2, 400
 TRAIN_PHASE_S = 180.0
+# the captured programs against eager: an NVE segment of NVE_HOLD_STEPS,
+# evaluate in batches of EVAL_HOLD_BATCH (a replay after the first)
+NVE_HOLD_STEPS, EVAL_HOLD_BATCH = 10, 8
 # a float32 gradient leaf of the card's step lies within F32_GRAD_FACTOR
 # times the CPU's float32 spread on it, or 1e-4 (gaps to the CPU's
 # float32 step over the leaf's largest |g|; the spread is the largest gap
@@ -3450,6 +3486,199 @@ def run_cluster(torch, dev, cfg, single):
 
 # --- phase 8: training on the card -------------------------------------------
 
+@contextlib.contextmanager
+def program_calls():
+    """Inside the block each ``captured.Programs.run`` is tallied by the
+    program's name and key: {(name, key): [captures, replays]} (on the
+    card a key's first call captures it, every later one replays)."""
+    from repro_torch.captured import Programs
+    run, calls = Programs.run, {}
+
+    def counting(self, key, fn, **inputs):
+        calls.setdefault((self.name, key), [0, 0])[key in self.programs] += 1
+        return run(self, key, fn, **inputs)
+    Programs.run = counting
+    try:
+        yield calls
+    finally:
+        Programs.run = run
+
+
+@contextlib.contextmanager
+def eager_training_programs():
+    """Inside the block ``captured.Programs.run`` calls its function
+    eagerly on the card (with the state it carries): the eager side of
+    the training programs' checks."""
+    from repro_torch.captured import Programs
+    run = Programs.run
+
+    def eager(self, key, fn, **inputs):
+        if self.state is not None:
+            inputs = dict(state=self.state, **inputs)
+        return fn(**inputs)
+    Programs.run = eager
+    try:
+        yield
+    finally:
+        Programs.run = run
+
+
+HOST_PARTS = ("Python", "autograd engine", "ATen dispatch and launches",
+              "DTensor dispatch", "K4 wrapper and checks",
+              "waiting for the card", "other")
+
+
+def host_split(torch, fn):
+    """One eager ``fn()`` under torch.profiler (CPU activity), its host
+    time split by where the host was: the self time of the autograd
+    engine's events (its node bookkeeping and the Python backwards of the
+    straight-through estimators it runs), of the ``aten::`` ops (the
+    dispatcher and the launches), of DTensor's dispatch (the profiler's
+    ``PythonSubclass`` events: sharding propagation and redistribution
+    around each DTensor op; and its to/from-local autograd functions), of
+    K4's Python wrapper and its argument checks
+    (``core.codebook.mddq_encode_kernel``, in a range), of the final host
+    read of the loss (``fn`` returns the tensor read), of other named
+    events; and Python, the rest of the profiled wall time (the
+    interpreter between ops). The engine's thread runs the backward while
+    the caller's waits for it, so the threads' times add up to the wall
+    time. Returns (wall ms, {part: ms})."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.core import codebook
+    plain = codebook.mddq_encode_kernel
+
+    def k4(*args, **kw):
+        with record_function("K4 wrapper and checks"):
+            return plain(*args, **kw)
+    torch.cuda.synchronize()
+    codebook.mddq_encode_kernel = k4
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            with record_function("waiting for the card"):
+                float(out)
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        codebook.mddq_encode_kernel = plain
+    parts = dict.fromkeys(HOST_PARTS, 0.0)
+    for e in prof.events():
+        ms = e.self_cpu_time_total / 1e3
+        if e.name in parts:
+            parts[e.name] += ms
+        elif e.name.startswith("autograd::engine") or "Backward" in e.name:
+            parts["autograd engine"] += ms
+        elif e.name.startswith(("aten::", "cuda")):
+            parts["ATen dispatch and launches"] += ms
+        elif e.name in ("PythonSubclass", "_ToTorchTensor",
+                        "_FromTorchTensor"):
+            parts["DTensor dispatch"] += ms
+        else:
+            parts["other"] += ms
+    parts["Python"] = wall - sum(parts.values())
+    return wall, parts
+
+
+def print_host_split(what, wall, parts, ident):
+    print(f"  host split of {what} (torch.profiler, CPU time, profiled "
+          f"{wall:.1f} ms): " + ", ".join(
+              f"{k} {v:.1f} ms ({v / wall:.0%})" for k, v in parts.items())
+          + f" [{ident}]")
+
+
+def _plain(torch, t):
+    from torch.distributed.tensor import DTensor
+    return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+
+
+def hold_step(torch, progs, key, body, state0, inputs, what,
+              kept=lambda state: state):
+    """A program of ``progs`` replayed from ``state0`` against five eager
+    runs of ``body`` from it (the state reset before each): every output
+    and every leaf of ``kept(new state)``, bit for bit where the eager
+    runs agree bit for bit, else within twice their largest gap (the
+    backward's scatters and index-adds sum with atomics). Prints the
+    worst leaf; returns (worst gap, its eager spread)."""
+    from repro_torch.captured import copy_into, tree_tensors
+
+    def run(fn):
+        copy_into(progs.state, state0)
+        out = fn(**inputs)
+        return [_plain(torch, t).clone() for t in
+                tree_tensors(out) + tree_tensors(kept(progs.state))]
+    replayed = run(lambda **kw: progs.run(key, body, **kw))
+    eager = [run(lambda **kw: body(state=progs.state, **kw))
+             for _ in range(5)]
+    worst, n_spread = (0.0, 0.0, -1), 0
+    for i, r in enumerate(replayed):
+        spread = max(float((a[i].double() - b[i].double()).abs().max())
+                     for a in eager for b in eager)
+        gap = float((r.double() - eager[0][i].double()).abs().max())
+        n_spread += spread > 0
+        ok = torch.equal(r, eager[0][i]) if spread == 0 \
+            else gap <= 2 * spread
+        require(ok, f"{what}: output {i} of the replay differs from eager "
+                    f"by {gap} (five eager runs' largest gap {spread})")
+        if gap > worst[0]:
+            worst = (gap, spread, i)
+    print(f"  {what}: a replay against five eager runs from the same state,"
+          f" {len(replayed)} outputs and leaves: "
+          f"{len(replayed) - n_spread} bit for bit in every eager run and "
+          f"so in the replay; the "
+          f"largest gap {worst[0]:.3g} (output {worst[2]}, eager spread "
+          f"{worst[1]:.3g}, twice that allowed)")
+    copy_into(progs.state, state0)
+    return worst[:2]
+
+
+def paired_ms(torch, fns, n, read):
+    """ms per call of each of ``fns`` ({"eager": f, "replay": g}), host
+    clock, each call ended by ``read(out)`` (the host read the caller
+    makes), in the order eager, replay, replay, eager, ``n`` calls each
+    time after one untimed; {name: [ms]}."""
+    times = {k: [] for k in fns}
+    for how in ("eager", "replay", "replay", "eager"):
+        read(fns[how]())
+        for _ in range(n):
+            t0 = time.perf_counter()
+            read(fns[how]())
+            times[how].append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def replay_idle(torch, prog, reps=5):
+    """(host ms median of ``reps`` bare replays, device busy ms of one,
+    idle share) of a captured program."""
+    from torch.profiler import ProfilerActivity, profile
+    lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        prog.replay()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prog.replay()
+        torch.cuda.synchronize()
+    busy = sum(r[0] for r in _device_rows(torch, prof))
+    host = statistics.median(lat)
+    return host, busy, (1 - busy / host) if busy else None, prof
+
+
+def no_sync_replay(torch, prog, what):
+    """One bare replay of ``prog`` under sync-debug "error": any host
+    sync raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        prog.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"  {what}: a replay ran under torch.cuda.set_sync_debug_mode("
+          "'error'): no host sync")
+
+
 def moved_qat_sites(a_sites, b_sites, qmax=127):
     """Per site, the entries whose A8 code or clip gate (1 inside, 0.5
     exactly on +-qmax, 0 beyond: the straight-through gradient) or MDDQ
@@ -3504,6 +3733,143 @@ def step_gap(torch, a, b):
                  for k in gb}
 
 
+def so3_step_replays(torch, dev, ident, cases, data, rots):
+    """Phase 8's captured steps against eager: per (label, loss_fn,
+    params, K4 launches per step) in ``cases``, the step's program
+    (``so3_trainer.step_body`` through ``captured.Programs``, as
+    ``train`` runs it) on the first training batch: captured, held
+    against five eager runs, its K4 launches (recorded, and the
+    profiler's over one replay), a replay under sync-debug "error", ms
+    per step eager against replay (paired), a replayed step's idle
+    share, capture seconds and graph-pool bytes. Returns {label: (eager
+    ms, replay ms)}."""
+    import functools
+    from repro_torch.captured import Programs, clone_tree, pool_bytes
+    from repro_torch.training import so3_trainer as tr
+    idx = torch.arange(TRAIN_BATCH, device=dev)
+    out = {}
+    for label, loss_fn, params, k4, opt in cases:
+        body = functools.partial(tr.step_body, loss_fn, opt, data)
+        inputs = dict(idx=idx, rotations=rots if loss_fn.use_lee else None)
+        state0 = clone_tree((params, opt.init(params)))
+        progs = Programs(device=dev, name=f"the {label} step",
+                         state=clone_tree(state0))
+        progs.run(label, body, **inputs)                   # captures
+        prog = progs.programs[label]
+        require(prog.launch_counts().get("mddq_encode_kernel", 0) == k4
+                and not nonzero({k: v for k, v in prog.launch_counts().items()
+                                 if k != "mddq_encode_kernel"}),
+                f"{label}: the capture recorded {prog.launch_counts()}, "
+                f"expected {k4} K4 launches and nothing else")
+        hold_step(torch, progs, label, body, state0, inputs,
+                  f"{label} step")
+        check_replay_launches(torch, prog, f"one replayed {label} step")
+        no_sync_replay(torch, prog, f"{label} step")
+        ms = paired_ms(torch, {
+            "eager": lambda: body(state=progs.state, **inputs),
+            "replay": lambda: progs.run(label, body, **inputs)},
+            3, lambda r: float(r[0]))
+        host, busy, idle, _ = replay_idle(torch, prog)
+        out[label] = (statistics.mean(ms["eager"]),
+                      statistics.mean(ms["replay"]))
+        print(f"  {label} step, ms per step (host clock, each ended by "
+              f"reading its loss, in the order eager, replay, replay, "
+              f"eager): eager " + ", ".join(f"{m:.2f}" for m in ms["eager"])
+              + "; replay " + ", ".join(f"{m:.2f}" for m in ms["replay"])
+              + f"; a bare replay {host:.3f} ms, device busy {busy:.3f} ms, "
+              f"idle share " + (f"{idle:.3f}" if idle is not None
+                                else "not measured")
+              + f"; {capture_seconds([prog])}; graph pool "
+              f"{pool_bytes(progs.pool)} bytes [{ident}]")
+        del progs, prog, state0
+    return out
+
+
+def nve_segment_replays(torch, dev, ident, cfg, params, test_data):
+    """Phase 8's captured NVE segment (``md.nve.nve_segment`` through
+    ``captured.Programs``, as ``nve_trajectory`` runs it) of the trained
+    gaq_w4a8 model, NVE_HOLD_STEPS steps from ``pipeline.nve_eval``'s
+    initial state: held against five eager runs, the profiler's kernels
+    over one replay against the recorded launches, a replay under
+    sync-debug "error", ms per step eager against replay (paired), idle
+    share, capture seconds and graph-pool bytes. Returns (eager ms, replay
+    ms) per step."""
+    from repro_torch.captured import Programs, clone_tree, pool_bytes
+    from repro_torch.core.codebook import make_codebook
+    from repro_torch.data.synthetic_md import MASSES, make_ff
+    from repro_torch.md.nve import init_state, nve_segment
+    from repro_torch.models import so3krates as so3
+    cb = make_codebook(cfg.dir_bits, device=dev)
+    species, e_scale = test_data["species"], float(test_data["e_scale"])
+    masses = torch.tensor(MASSES, dtype=torch.float32, device=dev)
+
+    def force_fn(c):
+        return so3.forces(params, cfg, species, c, cb) * e_scale
+
+    def energy_fn(c):
+        with torch.no_grad():
+            return so3.energy(params, cfg, species, c, cb) * e_scale
+    state0 = init_state(7, make_ff(dev)[0], masses, force_fn, 300.0)
+
+    def body(state):
+        return nve_segment(state, masses, force_fn, energy_fn, 0.5,
+                           NVE_HOLD_STEPS)
+    progs = Programs(device=dev, name="the NVE segment",
+                     state=clone_tree(state0))
+    progs.run(NVE_HOLD_STEPS, body)                         # captures
+    prog = progs.programs[NVE_HOLD_STEPS]
+    hold_step(torch, progs, NVE_HOLD_STEPS, body, state0, {},
+              f"a {NVE_HOLD_STEPS}-step NVE segment")
+    check_replay_launches(torch, prog, f"one replayed {NVE_HOLD_STEPS}-step"
+                                       " NVE segment")
+    no_sync_replay(torch, prog, "the NVE segment")
+    ms = paired_ms(torch, {"eager": lambda: body(state=progs.state),
+                           "replay": lambda: progs.run(NVE_HOLD_STEPS,
+                                                       body)},
+                   2, lambda r: float(r))
+    ms = {k: [m / NVE_HOLD_STEPS for m in v] for k, v in ms.items()}
+    host, busy, idle, _ = replay_idle(torch, prog)
+    print(f"  NVE step, ms per step over {NVE_HOLD_STEPS}-step segments "
+          f"(host clock, each ended by reading its record, in the order "
+          f"eager, replay, replay, eager): eager "
+          + ", ".join(f"{m:.3f}" for m in ms["eager"]) + "; replay "
+          + ", ".join(f"{m:.3f}" for m in ms["replay"])
+          + f"; a bare replay {host / NVE_HOLD_STEPS:.3f} ms per step, "
+          f"device busy {busy / NVE_HOLD_STEPS:.3f}, idle share "
+          + (f"{idle:.3f}" if idle is not None else "not measured")
+          + f"; {capture_seconds([prog])}; graph pool "
+          f"{pool_bytes(progs.pool)} bytes [{ident}]")
+    return statistics.mean(ms["eager"]), statistics.mean(ms["replay"])
+
+
+def eval_replays(torch, dev, cfg, params, test_data):
+    """``evaluate`` in batches of EVAL_HOLD_BATCH (one program, replayed
+    after its first batch) and ``lee_eval`` (4 x 4: one force program,
+    replayed 31 times), captured against five eager runs of each (the
+    programs called eagerly on the card): equal where the eager runs
+    agree, else within twice their largest gap."""
+    from repro_torch.training import pipeline
+    from repro_torch.training import so3_trainer as tr
+
+    def run():
+        ev = tr.evaluate(cfg, params, test_data, batch=EVAL_HOLD_BATCH,
+                         device=dev)
+        return [ev["e_mae"], ev["f_mae"], pipeline.lee_eval(
+            cfg, params, test_data, n_rot=4, n_cfg=4, device=dev)]
+    replayed = run()
+    with eager_training_programs():
+        eager = [run() for _ in range(5)]
+    for i, name in enumerate(("E MAE", "F MAE", "LEE")):
+        spread = max(abs(a[i] - b[i]) for a in eager for b in eager)
+        gap = abs(replayed[i] - eager[0][i])
+        print(f"  captured {name} {replayed[i]!r} against eager "
+              f"{eager[0][i]!r}: gap {gap:.3g}, five eager runs' largest "
+              f"gap {spread:.3g}")
+        require(gap == 0 if spread == 0 else gap <= 2 * spread,
+                f"the captured {name} differs from eager by {gap} (eager "
+                f"spread {spread})")
+
+
 def run_training(torch, dev):
     """Phase 8: sample the azobenzene set on the card, train fp32 at the
     paper's width, QAT-finetune gaq_w4a8 with warm-up and the LEE term,
@@ -3512,6 +3878,7 @@ def run_training(torch, dev):
     and one full QAT step; K4 and the serving kernels at this path's
     shapes; the parameter file bit for bit."""
     import tempfile
+    from repro_torch.captured import clone_tree
     from repro_torch.core.codebook import make_codebook
     from repro_torch.core.lee import random_rotations
     from repro_torch.data.synthetic_md import sample_dataset_md
@@ -3550,225 +3917,275 @@ def run_training(torch, dev):
     require(cfgq.dir_bits == 12 and cfg32.n_rbf == 16
             and cfg32.cutoff == 10.0, "not the pipeline's configuration")
     n_steps = TRAIN_FRAMES // TRAIN_BATCH
-
-    # 2. fp32 at the paper's width: no kernel launches
-    t0 = time.perf_counter()
-    (p32, h32), n32 = counted(lambda: tr.train(
-        cfg32, train_data, tr.TrainConfig(
-            epochs=FP32_EPOCHS, warmup_epochs=0, batch_size=TRAIN_BATCH,
-            lr=5e-3), device=dev))
-    t32 = time.perf_counter() - t0
-    require(np.isfinite(h32["loss"]).all(), "fp32: non-finite loss")
-    require(h32["loss"][-1] < h32["loss"][0],
-            f"fp32: the loss did not fall ({h32['loss'][0]} -> "
-            f"{h32['loss'][-1]})")
-    only_k4(n32, 0, "fp32 training")
-
-    # 3. QAT: warm-up epochs launch nothing, a full step L x (1 + 2 x
-    # rotations) K4 band searches (one batched forward, two per rotation)
     qcfg = tr.TrainConfig(epochs=QAT_EPOCHS, warmup_epochs=QAT_WARMUP,
                           batch_size=TRAIN_BATCH, lr=1e-3, lee_weight=1.0,
                           lee_rotations=2)
-    per_full = cfgq.n_layers * (1 + 2 * qcfg.lee_rotations)
-    t0 = time.perf_counter()
-    (pq, hq), nq = counted(lambda: tr.train(cfgq, train_data, qcfg,
-                                            init=p32, device=dev))
-    tq = time.perf_counter() - t0
-    require(np.isfinite(hq["loss"]).all(), "gaq_w4a8: non-finite loss")
-    only_k4(nq, (QAT_EPOCHS - QAT_WARMUP) * n_steps * per_full,
-            "QAT training")
-    warm_n = QAT_WARMUP * n_steps
-
-    def med(xs):
-        return statistics.median(xs[1:] if len(xs) > 1 else xs)
-    step_ms = {"fp32": med(h32["step_ms"]),
-               "QAT warm-up": med(hq["step_ms"][:warm_n]),
-               "QAT full": med(hq["step_ms"][warm_n:])}
-    print(f"  fp32: {FP32_EPOCHS} epochs x {n_steps} steps in {t32:.1f} s, "
-          f"loss {h32['loss'][0]:.4f} -> {h32['loss'][-1]:.4f}; QAT "
-          f"gaq_w4a8: {QAT_EPOCHS} epochs ({QAT_WARMUP} warm-up) in "
-          f"{tq:.1f} s, loss {hq['loss'][0]:.4f} -> {hq['loss'][-1]:.4f}")
-    print("  ms per training step (host clock, median, first step left "
-          "out): " + ", ".join(f"{k} {v:.2f}" for k, v in step_ms.items())
-          + f" [{ident}]")
-
-    # one step of each kind in its own window, and the profile of a full
-    # step; the same batch and rotations as the card-vs-CPU steps below
     species = train_data["species"]
     cb = make_codebook(cfgq.dir_bits, device=dev)
-    batch = [train_data[k][:TRAIN_BATCH] for k in ("coords", "energy",
-                                                   "forces")]
     rots = random_rotations(1, qcfg.lee_rotations)
-    opt = tr.make_optimizer(qcfg, QAT_EPOCHS * n_steps)
-    loss_warm = tr.make_loss_fn(dataclasses.replace(
-        cfgq, freeze_vec_quant=True), species, cb, qcfg)
-    loss_full = tr.make_loss_fn(cfgq, species, cb, qcfg)
-    loss_32 = tr.make_loss_fn(cfg32, species, None, qcfg)
 
-    def step(loss_fn):
-        out = tr.train_step(loss_fn, opt, pq, opt.init(pq), *batch, rots)
-        float(out[2])
-        return out
-    _, n_warm = counted(lambda: step(loss_warm))
-    only_k4(n_warm, 0, "a QAT warm-up step")
-    with k4_inputs() as k4_calls:
-        _, n_full = counted(lambda: step(loss_full))
-    only_k4(n_full, per_full, "a full QAT step")
-    print(f"  launches per step: fp32 0, warm-up 0, full QAT K4 "
-          f"{n_full['mddq_encode_kernel']} (L={cfgq.n_layers} x (1 + 2 x "
-          f"{qcfg.lee_rotations} rotations)), nothing else")
-    host = []
-    for _ in range(5):
+    # the host time of one eager full QAT step, split, before any capture
+    p0 = so3.init_params(cfgq, 0, dev)
+    opt0 = tr.make_optimizer(qcfg, QAT_EPOCHS * n_steps)
+    state = clone_tree((p0, opt0.init(p0)))
+    loss0 = tr.make_loss_fn(cfgq, species, cb, qcfg)
+    idx0 = torch.arange(TRAIN_BATCH, device=dev)
+    rots0 = torch.as_tensor(rots, device=dev)
+
+    def eager_step():
+        return tr.step_body(loss0, opt0, train_data, state, idx0, rots0)[0]
+    float(eager_step())
+    print_host_split("one eager full QAT step (gaq_w4a8, batch 32, the "
+                     "LEE term over 2 rotations)", *host_split(
+                         torch, eager_step), ident)
+    del p0, state
+    with program_calls() as calls:
+        # 2. fp32 at the paper's width: no kernel launches
         t0 = time.perf_counter()
-        step(loss_full)
-        host.append((time.perf_counter() - t0) * 1e3)
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(loss_full)
-        torch.cuda.synchronize(dev)
-    rows = _device_rows(torch, prof)
-    busy = sum(r[0] for r in rows)
-    if busy:
-        print(f"  profiled full QAT step: device busy {busy:.3f} ms, "
-              f"{sum(r[1] for r in rows)} device events; unprofiled "
-              f"{statistics.median(host):.2f} ms (median of 5) -> idle share "
-              f"{1 - busy / statistics.median(host):.3f} [{ident}]")
-        for t_ms, count, key in rows[:6]:
-            print(f"    {t_ms:9.4f} ms  x{count:<5d} {key[:80]}")
-    else:
-        print("  profiler: no device time recorded (idle share not "
-              "measured)")
+        (p32, h32), n32 = counted(lambda: tr.train(
+            cfg32, train_data, tr.TrainConfig(
+                epochs=FP32_EPOCHS, warmup_epochs=0, batch_size=TRAIN_BATCH,
+                lr=5e-3), device=dev))
+        t32 = time.perf_counter() - t0
+        require(np.isfinite(h32["loss"]).all(), "fp32: non-finite loss")
+        require(h32["loss"][-1] < h32["loss"][0],
+                f"fp32: the loss did not fall ({h32['loss'][0]} -> "
+                f"{h32['loss'][-1]})")
+        only_k4(n32, 0, "fp32 training")
 
-    # K4 at this path's shapes: the batch's vectors and one LEE force call
-    require(len(k4_calls) == per_full, f"{len(k4_calls)} K4 calls recorded")
-    v_batch, cb_k4 = k4_calls[0]
-    require(tuple(v_batch.shape) == (TRAIN_BATCH * 24 * cfgq.vec_feat, 3)
-            and cb_k4.shape[0] == 2 ** cfgq.dir_bits,
-            f"K4 took {tuple(v_batch.shape)} x {cb_k4.shape[0]}")
-    _, err_b = _mddq_exact(torch, v_batch, cb_k4, "training batch")
-    _, err_l = _mddq_exact(torch, k4_calls[cfgq.n_layers][0], cb_k4,
-                           "LEE force call")
-    k4 = lambda: mddq_encode_kernel(v_batch, cb_k4)      # noqa: E731
-    k4_ms = queued_device_ms(torch, k4)
-    k4_event = time_ms(torch, k4, reps=10)
-    k4_plain = time_ms(torch, lambda: mddq_encode_ref(v_batch, cb_k4),
-                       reps=2, rounds=3)
-    pairs, covered = band_work(torch, v_batch, cb_k4, k4()[0])
-    k4_bound, k4_by = bound(20 * v_batch.shape[0] + 12 * covered,
-                            5 * pairs, FP32_OPS_PER_S)
-    print(f"  K4 at the training shape N={v_batch.shape[0]} "
-          f"C={cb_k4.shape[0]}: device {k4_ms * 1e3:.3f} us (CUDA events "
-          f"behind a sleep kernel), event {k4_event * 1e3:.2f} us (back to "
-          f"back), plain {k4_plain:.3f} ms, bound {k4_bound * 1e3:.4f} us "
-          f"({k4_by}, {pairs} scored pairs) [{ident}]")
+        # 3. QAT: warm-up epochs launch nothing, a full step L x (1 + 2 x
+        # rotations) K4 band searches (one batched forward, two per rotation)
+        per_full = cfgq.n_layers * (1 + 2 * qcfg.lee_rotations)
+        t0 = time.perf_counter()
+        (pq, hq), nq = counted(lambda: tr.train(cfgq, train_data, qcfg,
+                                                init=p32, device=dev))
+        tq = time.perf_counter() - t0
+        require(np.isfinite(hq["loss"]).all(), "gaq_w4a8: non-finite loss")
+        only_k4(nq, (QAT_EPOCHS - QAT_WARMUP) * n_steps * per_full,
+                "QAT training")
+        warm_n = QAT_WARMUP * n_steps
 
-    # the card against the CPU: one fp32 and one full QAT step (loss and
-    # every gradient leaf), same weights, batch and rotations; the QAT
-    # step with the CPU's codes and gates pinned, so that what is left is
-    # arithmetic. Float32 rounds some first-layer gradients (layer0/wq,
-    # wk, rbf_a) by up to ~2e-3 of their largest |g|, by the data and
-    # weights, so each float32 leaf is held within F32_GRAD_FACTOR of the
-    # CPU's own float32 spread on it; and both steps run in float64 on
-    # both devices, held to 1e-4
-    cpu = torch.device("cpu")
-    p_cpu = {k: v.cpu() for k, v in pq.items()}
-    batch_cpu = [t.cpu() for t in batch]
+        def med(xs):
+            return statistics.median(xs[1:] if len(xs) > 1 else xs)
+        step_ms = {"fp32": med(h32["step_ms"]),
+                   "QAT warm-up": med(hq["step_ms"][:warm_n]),
+                   "QAT full": med(hq["step_ms"][warm_n:])}
+        print(f"  fp32: {FP32_EPOCHS} epochs x {n_steps} steps in "
+              f"{t32:.1f} s, "
+              f"loss {h32['loss'][0]:.4f} -> {h32['loss'][-1]:.4f}; QAT "
+              f"gaq_w4a8: {QAT_EPOCHS} epochs ({QAT_WARMUP} warm-up) in "
+              f"{tq:.1f} s, loss {hq['loss'][0]:.4f} -> {hq['loss'][-1]:.4f}")
+        print("  ms per training step in train (replayed; host clock, "
+              "median, the first step of each kind, its capture, left out): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in step_ms.items())
+              + f" [{ident}]")
 
-    def f64(tree):
-        if isinstance(tree, dict):
-            return {k: v.double() for k, v in tree.items()}
-        return [torch.as_tensor(t).double() for t in tree]
-    for name, cfg, fn in (("fp32", cfg32, loss_32),
-                          ("gaq_w4a8", cfgq, loss_full)):
-        fn_cpu = tr.make_loss_fn(
-            cfg, species.cpu(), make_codebook(cfg.dir_bits, device=cpu)
-            if cfg.quant != "none" else None, qcfg)
-        tol = 1e-5 if cfg.quant == "none" else 1e-4
-        with qat_sites() as s_card:
-            card = tr.loss_and_grads(fn, pq, *batch, rots)
-        with qat_sites() as s_cpu:
-            host_ = tr.loss_and_grads(fn_cpu, p_cpu, *batch_cpu, rots)
-        # the CPU's float32 spread on each leaf: N_JITTERS more runs of
-        # its step with the coordinates jittered by an ulp
-        spread = dict.fromkeys(host_[2], 0.0)
-        for j in range(N_JITTERS):
-            with qat_sites(pin=s_cpu):
-                run_j = tr.loss_and_grads(fn_cpu, p_cpu, jittered(
-                    batch_cpu[0], j), *batch_cpu[1:], rots)
-            gaps_j = step_gap(torch, run_j, host_)[1]
-            spread = {k: max(e, gaps_j[k]) for k, e in spread.items()}
-        bound32 = {k: max(1e-4, F32_GRAD_FACTOR * e)
-                   for k, e in spread.items()}
+        # one step of each kind in its own window, and the profile of a full
+        # step; the same batch and rotations as the card-vs-CPU steps below
+        batch = [train_data[k][:TRAIN_BATCH] for k in ("coords", "energy",
+                                                       "forces")]
+        opt = tr.make_optimizer(qcfg, QAT_EPOCHS * n_steps)
+        loss_warm = tr.make_loss_fn(dataclasses.replace(
+            cfgq, freeze_vec_quant=True), species, cb, qcfg)
+        loss_full = tr.make_loss_fn(cfgq, species, cb, qcfg)
+        loss_32 = tr.make_loss_fn(cfg32, species, None, qcfg)
 
-        def held(step, what):
-            rel, leaves = step_gap(torch, step, host_)
-            worst = max(leaves, key=lambda k: leaves[k] / bound32[k])
-            print(f"  {name} step{what}, card vs CPU in float32: loss "
-                  f"{rel:.3g}, worst gradient leaf {worst} "
-                  f"{leaves[worst]:.3g} (of the leaf's largest |g|; the "
-                  f"CPU's float32 spread {spread[worst]:.3g}, bound "
-                  f"{bound32[worst]:.3g})")
-            return rel <= tol and leaves[worst] <= bound32[worst], (
-                f"{name}{what}: loss {rel}, {worst} {leaves[worst]} > "
-                f"{bound32[worst]}")
-        ok, what = held(card, "")
-        pin = None
-        if cfg.quant == "none":
-            require(ok, what)
+        def step(loss_fn):
+            out = tr.train_step(loss_fn, opt, pq, opt.init(pq), *batch, rots)
+            float(out[2])
+            return out
+        _, n_warm = counted(lambda: step(loss_warm))
+        only_k4(n_warm, 0, "a QAT warm-up step")
+        with k4_inputs() as k4_calls:
+            _, n_full = counted(lambda: step(loss_full))
+        only_k4(n_full, per_full, "a full QAT step")
+        print(f"  launches per step: fp32 0, warm-up 0, full QAT K4 "
+              f"{n_full['mddq_encode_kernel']} (L={cfgq.n_layers} x (1 + 2 x "
+              f"{qcfg.lee_rotations} rotations)), nothing else")
+        host = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            step(loss_full)
+            host.append((time.perf_counter() - t0) * 1e3)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(loss_full)
+            torch.cuda.synchronize(dev)
+        rows = _device_rows(torch, prof)
+        busy = sum(r[0] for r in rows)
+        if busy:
+            print(f"  profiled full QAT step: device busy {busy:.3f} ms, "
+                  f"{sum(r[1] for r in rows)} device events; unprofiled "
+                  f"{statistics.median(host):.2f} ms (median of 5) -> idle "
+                  f"share "
+                  f"{1 - busy / statistics.median(host):.3f} [{ident}]")
+            for t_ms, count, key in rows[:6]:
+                print(f"    {t_ms:9.4f} ms  x{count:<5d} {key[:80]}")
         else:
-            if not ok:
-                moved = moved_qat_sites(s_card, s_cpu)
-                print(f"  {name}: A8 codes or gates and MDDQ codes that "
-                      f"moved, per site: {moved}")
-                require(sum(moved) > 0, f"{what} with no moved code")
-            pin = s_cpu
+            print("  profiler: no device time recorded (idle share not "
+                  "measured)")
+
+        # K4 at this path's shapes: the batch's vectors and one LEE force call
+        require(len(k4_calls) == per_full,
+                f"{len(k4_calls)} K4 calls recorded")
+        v_batch, cb_k4 = k4_calls[0]
+        require(tuple(v_batch.shape) == (TRAIN_BATCH * 24 * cfgq.vec_feat, 3)
+                and cb_k4.shape[0] == 2 ** cfgq.dir_bits,
+                f"K4 took {tuple(v_batch.shape)} x {cb_k4.shape[0]}")
+        _, err_b = _mddq_exact(torch, v_batch, cb_k4, "training batch")
+        _, err_l = _mddq_exact(torch, k4_calls[cfgq.n_layers][0], cb_k4,
+                               "LEE force call")
+        k4 = lambda: mddq_encode_kernel(v_batch, cb_k4)      # noqa: E731
+        k4_ms = queued_device_ms(torch, k4)
+        k4_event = time_ms(torch, k4, reps=10)
+        k4_plain = time_ms(torch, lambda: mddq_encode_ref(v_batch, cb_k4),
+                           reps=2, rounds=3)
+        pairs, covered = band_work(torch, v_batch, cb_k4, k4()[0])
+        k4_bound, k4_by = bound(20 * v_batch.shape[0] + 12 * covered,
+                                5 * pairs, FP32_OPS_PER_S)
+        print(f"  K4 at the training shape N={v_batch.shape[0]} "
+              f"C={cb_k4.shape[0]}: device {k4_ms * 1e3:.3f} us (CUDA events "
+              f"behind a sleep kernel), event {k4_event * 1e3:.2f} us (back "
+              f"to "
+              f"back), plain {k4_plain:.3f} ms, bound {k4_bound * 1e3:.4f} us "
+              f"({k4_by}, {pairs} scored pairs) [{ident}]")
+
+        # the card against the CPU: one fp32 and one full QAT step (loss and
+        # every gradient leaf), same weights, batch and rotations; the QAT
+        # step with the CPU's codes and gates pinned, so that what is left is
+        # arithmetic. Float32 rounds some first-layer gradients (layer0/wq,
+        # wk, rbf_a) by up to ~2e-3 of their largest |g|, by the data and
+        # weights, so each float32 leaf is held within F32_GRAD_FACTOR of the
+        # CPU's own float32 spread on it; and both steps run in float64 on
+        # both devices, held to 1e-4
+        cpu = torch.device("cpu")
+        p_cpu = {k: v.cpu() for k, v in pq.items()}
+        batch_cpu = [t.cpu() for t in batch]
+
+        def f64(tree):
+            if isinstance(tree, dict):
+                return {k: v.double() for k, v in tree.items()}
+            return [torch.as_tensor(t).double() for t in tree]
+        for name, cfg, fn in (("fp32", cfg32, loss_32),
+                              ("gaq_w4a8", cfgq, loss_full)):
+            fn_cpu = tr.make_loss_fn(
+                cfg, species.cpu(), make_codebook(cfg.dir_bits, device=cpu)
+                if cfg.quant != "none" else None, qcfg)
+            tol = 1e-5 if cfg.quant == "none" else 1e-4
+            with qat_sites() as s_card:
+                card = tr.loss_and_grads(fn, pq, *batch, rots)
+            with qat_sites() as s_cpu:
+                host_ = tr.loss_and_grads(fn_cpu, p_cpu, *batch_cpu, rots)
+            # the CPU's float32 spread on each leaf: N_JITTERS more runs of
+            # its step with the coordinates jittered by an ulp
+            spread = dict.fromkeys(host_[2], 0.0)
+            for j in range(N_JITTERS):
+                with qat_sites(pin=s_cpu):
+                    run_j = tr.loss_and_grads(fn_cpu, p_cpu, jittered(
+                        batch_cpu[0], j), *batch_cpu[1:], rots)
+                gaps_j = step_gap(torch, run_j, host_)[1]
+                spread = {k: max(e, gaps_j[k]) for k, e in spread.items()}
+            bound32 = {k: max(1e-4, F32_GRAD_FACTOR * e)
+                       for k, e in spread.items()}
+
+            def held(step, what):
+                rel, leaves = step_gap(torch, step, host_)
+                worst = max(leaves, key=lambda k: leaves[k] / bound32[k])
+                print(f"  {name} step{what}, card vs CPU in float32: loss "
+                      f"{rel:.3g}, worst gradient leaf {worst} "
+                      f"{leaves[worst]:.3g} (of the leaf's largest |g|; the "
+                      f"CPU's float32 spread {spread[worst]:.3g}, bound "
+                      f"{bound32[worst]:.3g})")
+                return rel <= tol and leaves[worst] <= bound32[worst], (
+                    f"{name}{what}: loss {rel}, {worst} {leaves[worst]} > "
+                    f"{bound32[worst]}")
+            ok, what = held(card, "")
+            pin = None
+            if cfg.quant == "none":
+                require(ok, what)
+            else:
+                if not ok:
+                    moved = moved_qat_sites(s_card, s_cpu)
+                    print(f"  {name}: A8 codes or gates and MDDQ codes that "
+                          f"moved, per site: {moved}")
+                    require(sum(moved) > 0, f"{what} with no moved code")
+                pin = s_cpu
+                with qat_sites(pin=pin):
+                    pinned = tr.loss_and_grads(fn, pq, *batch, rots)
+                require(*held(pinned,
+                              " with the CPU's codes and gates pinned"))
             with qat_sites(pin=pin):
-                pinned = tr.loss_and_grads(fn, pq, *batch, rots)
-            require(*held(pinned, " with the CPU's codes and gates pinned"))
-        with qat_sites(pin=pin):
-            card64 = tr.loss_and_grads(fn, f64(pq), *f64(batch),
-                                       f64([rots])[0])
-        with qat_sites(pin=pin):
-            host64 = tr.loss_and_grads(fn_cpu, f64(p_cpu), *f64(batch_cpu),
-                                       f64([rots])[0])
-        rel64, leaves64 = step_gap(torch, card64, host64)
-        worst64 = max(leaves64, key=leaves64.get)
-        print(f"  {name} step in float64"
-              + (" with the CPU's codes and gates pinned" if pin else "")
-              + f", card vs CPU: loss {rel64:.3g}, worst gradient leaf "
-              f"{worst64} {leaves64[worst64]:.3g}")
-        require(rel64 <= tol and leaves64[worst64] <= 1e-4,
-                f"{name}: in float64 card and CPU differ by {rel64}, "
-                f"{worst64} {leaves64[worst64]}")
+                card64 = tr.loss_and_grads(fn, f64(pq), *f64(batch),
+                                           f64([rots])[0])
+            with qat_sites(pin=pin):
+                host64 = tr.loss_and_grads(fn_cpu, f64(p_cpu), *f64(batch_cpu),
+                                           f64([rots])[0])
+            rel64, leaves64 = step_gap(torch, card64, host64)
+            worst64 = max(leaves64, key=leaves64.get)
+            print(f"  {name} step in float64"
+                  + (" with the CPU's codes and gates pinned" if pin else "")
+                  + f", card vs CPU: loss {rel64:.3g}, worst gradient leaf "
+                  f"{worst64} {leaves64[worst64]:.3g}")
+            require(rel64 <= tol and leaves64[worst64] <= 1e-4,
+                    f"{name}: in float64 card and CPU differ by {rel64}, "
+                    f"{worst64} {leaves64[worst64]}")
 
-    # 4. evaluation: E/F MAE in meV and LEE (4 rotations x 4 frames)
-    ev = {}
-    for name, cfg, p in (("fp32", cfg32, p32), ("gaq_w4a8", cfgq, pq)):
-        ev[name], n_ev = counted(lambda: tr.evaluate(cfg, p, test_data,
-                                                     device=dev))
-        only_k4(n_ev, 0 if cfg.quant == "none" else cfg.n_layers
-                * -(-TEST_FRAMES // 32), f"evaluate {name}")
-        lee_v, n_lee = counted(lambda: pipeline.lee_eval(
-            cfg, p, test_data, n_rot=4, n_cfg=4, device=dev))
-        only_k4(n_lee, 0 if cfg.quant == "none" else 32 * cfg.n_layers,
-                f"lee_eval {name}")
-        ev[name]["lee"] = lee_v
-        print(f"  {name}: E MAE {ev[name]['e_mae'] * e_mev:.3f} meV, F MAE "
-              f"{ev[name]['f_mae'] * e_mev:.3f} meV/A, LEE {lee_v:.6f}")
+        # 4. evaluation: E/F MAE in meV and LEE (4 rotations x 4 frames)
+        ev = {}
+        for name, cfg, p in (("fp32", cfg32, p32), ("gaq_w4a8", cfgq, pq)):
+            ev[name], n_ev = counted(lambda: tr.evaluate(cfg, p, test_data,
+                                                         device=dev))
+            only_k4(n_ev, 0 if cfg.quant == "none" else cfg.n_layers
+                    * -(-TEST_FRAMES // 32), f"evaluate {name}")
+            lee_v, n_lee = counted(lambda: pipeline.lee_eval(
+                cfg, p, test_data, n_rot=4, n_cfg=4, device=dev))
+            only_k4(n_lee, 0 if cfg.quant == "none" else 32 * cfg.n_layers,
+                    f"lee_eval {name}")
+            ev[name]["lee"] = lee_v
+            print(f"  {name}: E MAE {ev[name]['e_mae'] * e_mev:.3f} meV, "
+                  f"F MAE "
+                  f"{ev[name]['f_mae'] * e_mev:.3f} meV/A, LEE {lee_v:.6f}")
 
-    # 5. NVE on the trained gaq_w4a8 model
-    t0 = time.perf_counter()
-    nve, n_nve = counted(lambda: pipeline.nve_eval(cfgq, pq, test_data,
-                                                   NVE_STEPS, device=dev))
-    only_k4(n_nve, cfgq.n_layers * (1 + NVE_STEPS + NVE_STEPS // 50),
-            "nve_eval")
-    require(np.isfinite(nve["energies"]).all(), "NVE: non-finite energy")
-    print(f"  NVE {NVE_STEPS} steps (gaq_w4a8, dt 0.5 fs): drift "
-          f"{nve['drift_ev_per_atom_ps']:.3e} eV/atom/ps, blew_up "
-          f"{nve['blew_up']}, {time.perf_counter() - t0:.1f} s")
+        # 5. NVE on the trained gaq_w4a8 model
+        t0 = time.perf_counter()
+        nve, n_nve = counted(lambda: pipeline.nve_eval(cfgq, pq, test_data,
+                                                       NVE_STEPS, device=dev))
+        only_k4(n_nve, cfgq.n_layers * (1 + NVE_STEPS + NVE_STEPS // 50),
+                "nve_eval")
+        require(np.isfinite(nve["energies"]).all(), "NVE: non-finite energy")
+        print(f"  NVE {NVE_STEPS} steps (gaq_w4a8, dt 0.5 fs): drift "
+              f"{nve['drift_ev_per_atom_ps']:.3e} eV/atom/ps, blew_up "
+              f"{nve['blew_up']}, {time.perf_counter() - t0:.1f} s")
 
-    # 6. the trained weights served: w4a8, sparse, MDDQ kernel, bucket 32
+        # 6. the captured programs against eager, paired in this call
+        t0 = time.perf_counter()
+        paired = so3_step_replays(torch, dev, ident, (
+            ("fp32", loss_32, p32, 0, tr.make_optimizer(
+                qcfg, FP32_EPOCHS * n_steps)),
+            ("QAT warm-up", loss_warm, pq, 0, opt),
+            ("QAT full", loss_full, pq, per_full, opt)), train_data,
+            torch.as_tensor(rots, device=dev))
+        paired["NVE"] = nve_segment_replays(torch, dev, ident, cfgq, pq,
+                                            test_data)
+        eval_replays(torch, dev, cfgq, pq, test_data)
+    print("  the training programs, captures and replays, over the "
+          "phase's pipeline runs and checks: " + "; ".join(
+              f"{n} [{k}] {c} + {r}" for (n, k), (c, r) in calls.items()))
+    for name, key in (("the SO3 training step", "warm-up"),
+                      ("the SO3 training step", "full"),
+                      ("the SO3 evaluation batch", EVAL_HOLD_BATCH),
+                      ("the LEE force call", 24),
+                      ("the NVE segment", 50)):
+        require(calls.get((name, key), [0, 0])[1] > 0,
+                f"{name} [{key}] was never replayed: {calls}")
+    print("  ms per step, eager against replayed (paired, means): "
+          + ", ".join(f"{k} {e:.2f} against {r:.3f}"
+                      for k, (e, r) in paired.items())
+          + f"; the checks took {time.perf_counter() - t0:.1f} s "
+          f"[{ident}]")
+
+    # 7. the trained weights served: w4a8, sparse, MDDQ kernel, bucket 32
     sp_np = species.cpu().numpy().astype(np.int32)
     graphs = [Graph(sp_np, c) for c in test_data["coords"].cpu().numpy()]
     eng = QuantizedEngine.from_config(cfgq, params=pq, serve=ServeConfig(
@@ -4801,6 +5218,122 @@ def launcher_run(torch, argv, what):
     return args, counts
 
 
+def run_lm_train_captured(torch, dev, ident):
+    """Phase 11 (a0): the launcher's step as ``launch/train.py`` builds it
+    (``make_body`` on the state ``main`` makes: qwen2-0.5b at full width
+    and depth, qat_w4a8 with ef8, DTensors on the local (1, 1) NCCL mesh,
+    the batch placed by ``batch_specs``) before any capture: the host
+    time of one eager step split; then its program (``captured
+    .Programs``, as ``main`` runs it) held against five eager runs from
+    one state, the profiler's kernels over one replay (none of the
+    port's), a replay under sync-debug "error", ms per step eager against
+    replay (paired), the idle share of a replay and of an eager step
+    (the replay's device busy: the same kernels), capture seconds,
+    graph-pool bytes and peak memory. Returns (eager ms, replay ms)."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import configs
+    from repro_torch.captured import Programs, clone_tree, pool_bytes
+    from repro_torch.data.tokens import synthetic_token_batches
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.lm.config import ShapeCell
+    from repro_torch.models.lm.transformer import init_lm
+    from repro_torch.optim.compression import ef_init
+    from repro_torch.tools.lm_train_gap import launcher_optimizer
+    B, S = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+    cfg = dataclasses.replace(configs.get_config("qwen2-0.5b"),
+                              quant_mode="qat_w4a8",
+                              attn_chunk_q=min(1024, S))
+    opened = not dist.is_initialized()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_setup = time.perf_counter()
+    mesh = make_local_mesh(dev)
+    try:
+        params = init_lm(cfg, seed=0, device=dev)
+        params = shd.place(params, shd.to_shardings(
+            shd.param_specs(params, cfg, mesh), mesh))
+        opt = launcher_optimizer(LM_TRAIN_STEPS)
+        b_sh = shd.to_shardings(shd.batch_specs(
+            cfg, ShapeCell("custom", S, B, "train"), mesh), mesh)
+        it = synthetic_token_batches(cfg, B, S, seed=17)
+        batch = {k: distribute_tensor(torch.from_numpy(v).to(dev), mesh,
+                                      b_sh[k].placements)
+                 for k, v in next(it).items()}
+        it.close()
+        state0 = (params, opt.init(params), ef_init(params))
+        del params
+        body = train.make_body(cfg, opt, True)
+        progs = Programs(device=dev, name="the launcher's step",
+                         state=clone_tree(state0))
+        with implicit_replication():
+            def eager():
+                return body(state=progs.state, batch=batch)
+            float(_plain(torch, eager()))
+            print_host_split(
+                "one eager launcher step (qwen2-0.5b, qat_w4a8 + ef8, "
+                f"B={B} S={S}, on the (1, 1) mesh)",
+                *host_split(torch, lambda: _plain(torch, eager())), ident)
+            t = [time.perf_counter()]
+            progs.run("step", body, batch=batch)            # captures
+            prog = progs.programs["step"]
+            require(not nonzero(prog.launch_counts()),
+                    f"the launcher's step recorded launches "
+                    f"{prog.launch_counts()}")
+            t.append(time.perf_counter())
+            hold_step(torch, progs, "step", body, state0, dict(batch=batch),
+                      "the launcher's step (its loss and new parameters)",
+                      kept=lambda state: state[0])
+            t.append(time.perf_counter())
+            no_sync_replay(torch, prog, "the launcher's step")
+            ms = paired_ms(torch, {
+                "eager": eager,
+                "replay": lambda: progs.run("step", body, batch=batch)},
+                2, lambda r: float(_plain(torch, r)))
+            t.append(time.perf_counter())
+            # one profile: the device busy of a replay, and the port's
+            # kernels in it against the capture's record (none)
+            host, busy, idle, prof = replay_idle(torch, prog)
+            counts = dict.fromkeys(KERNEL_SYMBOLS, 0)
+            for e in prof.events():
+                for k, sym in KERNEL_SYMBOLS.items():
+                    counts[k] += e.device_type == DeviceType.CUDA \
+                        and sym in e.name
+            require(not nonzero(counts), f"the profile of one replayed "
+                                         f"launcher step holds {counts}")
+            t.append(time.perf_counter())
+        e_host = statistics.mean(ms["eager"])
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        print(f"  the launcher's step, ms per step (host clock, each ended "
+              f"by reading its loss, in the order eager, replay, replay, "
+              f"eager): eager " + ", ".join(f"{m:.2f}" for m in ms["eager"])
+              + "; replay " + ", ".join(f"{m:.2f}" for m in ms["replay"])
+              + f"; a bare replay {host:.3f} ms, device busy {busy:.3f} ms "
+              f"(profiler, one replay), idle share "
+              + (f"{idle:.3f}; eager, the same kernels, "
+                 f"{1 - busy / e_host:.3f}" if idle is not None
+                 else "not measured")
+              + f"; no kernel of the port in the profile of one replay; "
+              f"{capture_seconds([prog])}; graph pool "
+              f"{pool_bytes(progs.pool)} bytes; peak device memory "
+              f"{peak:.2f} GiB (the state, its copy for the checks, the "
+              f"pool) [{ident}]")
+        print(f"  (a0) seconds: set-up and the host split "
+              f"{t[0] - t_setup:.1f}, capture {t[1] - t[0]:.1f}, hold "
+              f"{t[2] - t[1]:.1f}, paired timing {t[3] - t[2]:.1f}, "
+              f"profile {t[4] - t[3]:.1f}")
+        out = statistics.mean(ms["eager"]), statistics.mean(ms["replay"])
+        del progs, prog, state0, batch
+    finally:
+        if opened:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_lm_train_full(torch, dev, ident):
     """Phase 11 (a): the launcher at qwen2-0.5b's full width and depth,
     qat_w4a8 with ef8, then the plain step beside it; the step profiled
@@ -4816,11 +5349,16 @@ def run_lm_train_full(torch, dev, ident):
     with tempfile.TemporaryDirectory(prefix="lm_train_") as root:
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        args, counts = launcher_run(torch, [
-            "--arch", "qwen2-0.5b", "--steps", str(n), "--batch", str(B),
-            "--seq", str(S), "--quant", "qat_w4a8", "--grad-compression",
-            "ef8", "--ckpt-dir", f"{root}/qat"], "qat_w4a8 + ef8")
+        with program_calls() as calls:
+            args, counts = launcher_run(torch, [
+                "--arch", "qwen2-0.5b", "--steps", str(n), "--batch",
+                str(B), "--seq", str(S), "--quant", "qat_w4a8",
+                "--grad-compression", "ef8", "--ckpt-dir", f"{root}/qat"],
+                "qat_w4a8 + ef8")
         took = time.perf_counter() - t0
+        require(calls == {("the launcher's step", "step"): [1, n - 1]},
+                f"the launcher's programs: {calls}, expected one capture "
+                f"and {n - 1} replays")
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         launches.update(counts)
         cfg, log = args._cfg, {s: (f, t) for s, f, t in args._log}
@@ -4851,7 +5389,8 @@ def run_lm_train_full(torch, dev, ident):
               f"and checkpoint; bound {b_ms:.3f} ms ({b_by}: "
               f"{n_ops / 1e12:.3f} TFLOP at {BF16_OPS_PER_S / 1e12:.0f} "
               f"TFLOP/s bf16, {n_bytes / 1e9:.3f} GB at "
-              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); launches 0; the final "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); launches 0; the step "
+              f"captured on step 0 and replayed {n - 1} times; the final "
               f"checkpoint restored with every digest verified [{ident}]")
         # one make_train_step call profiled, beside its unprofiled time
         opt = launcher_optimizer(n)
@@ -5082,9 +5621,12 @@ def run_lm_train(torch, dev):
     "bounds": (b)'s ``quant none`` bounds}."""
     import threading
     t_phase, ident = time.perf_counter(), gpu_identity()
+    eager_ms, replay_ms = run_lm_train_captured(torch, dev, ident)
+    t_a = time.perf_counter()
+    print(f"  (a0) took {t_a - t_phase:.1f} s")
     launches = run_lm_train_full(torch, dev, ident)
     t_b = time.perf_counter()
-    print(f"  (a) took {t_b - t_phase:.1f} s")
+    print(f"  (a) took {t_b - t_a:.1f} s")
     print("  (b) one launcher step, card against CPU: qwen2-0.5b's width, "
           "2 layers deep, B=2, S=64, float32; (c), the kill and resume "
           "drill, runs beside it in a thread (its subprocesses are host "
@@ -5109,7 +5651,9 @@ def run_lm_train(torch, dev):
         raise drill["error"]
     print("\n".join(drill["lines"]))
     took = time.perf_counter() - t_phase
-    print(f"  phase 11 took {took:.1f} s [{ident}]")
+    print(f"  the launcher's step, eager against replayed (paired in (a0), "
+          f"means): {eager_ms:.2f} against {replay_ms:.2f} ms; phase 11 "
+          f"took {took:.1f} s [{ident}]")
     require(took <= LM_TRAIN_PHASE_S, f"phase 11 took {took:.1f} s, over "
                                       f"{LM_TRAIN_PHASE_S:.0f}")
     return {"launches": launches, "bounds": bounds}

@@ -30,7 +30,10 @@ A :class:`CapturedProgram` holds
 buffer itself is not copied), replays on the caller's current stream and
 returns the static outputs. Replays of one owner's programs must not run
 concurrently (they share the pool), and their outputs must be read or
-copied before the next replay.
+copied before the next replay. An input named in ``donate`` is not
+copied: its tensors, already on the device, are the program's buffers
+(the counterpart of ``donate_argnums``), so programs that carry one
+state share it (:class:`Programs`).
 
 Each thread warms up and captures on a stream of its own (one of
 PyTorch's high-priority pooled streams, which nothing else in the port
@@ -48,6 +51,15 @@ invalidate the capture. A capture that fails raises
 ``RuntimeError`` naming the program: nothing falls back to eager on the
 card. On a CPU device the constructor raises, and the callers run their
 eager functions there, as before.
+
+:class:`Programs` holds one owner's programs by key, in one pool, with
+the state they carry: the trainers' steps, the SO3 evaluation's batch,
+the LEE force call and the NVE segment, which the reference jits. On
+the CPU it calls the same functions eagerly.
+
+Leaves may be DTensors (the LM launcher's state on its device mesh):
+their buffers are compared, copied and cloned through their local
+tensors' storage, with their placements kept.
 """
 from __future__ import annotations
 
@@ -55,15 +67,16 @@ import contextlib
 import gc
 import threading
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Hashable, Iterable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels._launch import (add_launches, capturing_launches,
                                         owning_buffers)
 
-__all__ = ["CapturedProgram", "new_pool", "pool_bytes", "map_tensors",
-           "tree_tensors", "copy_into"]
+__all__ = ["CapturedProgram", "Programs", "new_pool", "pool_bytes",
+           "map_tensors", "tree_tensors", "copy_into", "clone_tree"]
 
 _STREAMS_LOCK = threading.Lock()
 # (device index, raw stream) -> the thread that warms up and captures on it
@@ -159,14 +172,30 @@ def tree_tensors(tree):
     return out
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local tensor (its storage; a DTensor's own
+    ``data_ptr()`` reads 0), or ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def copy_into(dst, src) -> None:
     """Copy the tensor leaves of ``src`` into those of ``dst`` (same
     structure), skipping a leaf that already is its destination."""
     def copy(d, s):
-        if d is not s and d.data_ptr() != s.data_ptr():
+        if d is not s and _local(d).data_ptr() != _local(s).data_ptr():
             d.copy_(s)
         return d
     map_tensors(copy, dst, src)
+
+
+def clone_tree(tree, device: Optional[torch.device] = None):
+    """Fresh buffers holding ``tree``'s tensor leaves (on ``device``, or
+    each leaf's own), detached; a DTensor stays a DTensor of the same
+    placements."""
+    def clone(t):
+        return torch.empty_like(t, device=device or t.device).copy_(
+            t.detach())
+    return map_tensors(clone, tree)
 
 
 class CapturedProgram:
@@ -175,15 +204,18 @@ class CapturedProgram:
     ``fn`` must be capturable: no host sync, no host-to-device copy of
     pageable memory, no host value read from a device tensor. ``inputs``
     maps names to trees of tensors (on any device: they are copied to
-    ``device``); ``name`` labels errors. Construction copies the inputs
-    into the static buffers, runs ``fn`` on them once eagerly (its
-    result kept as :attr:`first_result`) and captures, and records the
-    seconds of each: :attr:`warmup_seconds` and :attr:`capture_seconds`,
-    which :attr:`instantiate_seconds` (the graph's instantiation) ends.
+    ``device``), but for those named in ``donate``, which are the
+    program's buffers as they are; ``name`` labels errors. Construction
+    copies the inputs into the static buffers, runs ``fn`` on them once
+    eagerly (its result kept as :attr:`first_result`) and captures, and
+    records the seconds of each: :attr:`warmup_seconds` and
+    :attr:`capture_seconds`, which :attr:`instantiate_seconds` (the
+    graph's instantiation) ends.
     """
 
     def __init__(self, fn: Callable[..., Any], inputs: Dict[str, Any], *,
-                 device: torch.device, pool=None, name: str = "program"):
+                 device: torch.device, pool=None, name: str = "program",
+                 donate: Iterable[str] = ()):
         dev = torch.device(device)
         if dev.type != "cuda":
             raise RuntimeError(f"{name}: a captured program needs a CUDA "
@@ -192,8 +224,13 @@ class CapturedProgram:
         self.device = dev
         t0 = time.perf_counter()
         caller = torch.cuda.current_stream(dev)
-        self.static = map_tensors(lambda t: torch.empty_like(t, device=dev)
-                           .copy_(t.detach()), inputs)
+        donate = set(donate)
+        for k in donate:
+            if any(t.device != dev for t in tree_tensors(inputs[k])):
+                raise ValueError(f"{name}: the donated input {k!r} is not "
+                                 f"all on {dev}")
+        self.static = {k: v if k in donate else clone_tree(v, dev)
+                       for k, v in inputs.items()}
         self.graph = torch.cuda.CUDAGraph()
         side = _capture_stream(dev)
         side.wait_stream(caller)
@@ -203,7 +240,8 @@ class CapturedProgram:
                 owning_buffers(side.cuda_stream, self.buffers):
             # the warm-up: counted launches, on the capture's stream
             self.first_result = fn(**self.static)
-        map_tensors(lambda t: t.record_stream(caller), self.first_result)
+        map_tensors(lambda t: _local(t).record_stream(caller),
+                    self.first_result)
         side.synchronize()
         t1 = time.perf_counter()
         self._capture(fn, side, pool)
@@ -214,6 +252,13 @@ class CapturedProgram:
 
     def _capture(self, fn, side, pool) -> None:
         name = self.name
+        # the warm-up's freed blocks stay cached for the default pool, which
+        # a graph's private pool cannot draw on, and the allocator frees no
+        # cached block while a capture is open: release them first, as
+        # torch.cuda.graph does, unless another thread is capturing
+        with _GC_LOCK:
+            if _GC_HOLDS[0] == 0:
+                torch.cuda.empty_cache()
         with capturing_launches(side.cuda_stream) as tally, \
                 owning_buffers(side.cuda_stream, self.buffers), \
                 _collector_off():
@@ -254,3 +299,50 @@ class CapturedProgram:
         self.graph.replay()
         add_launches(self.launches)
         return self.outputs
+
+
+class Programs:
+    """One owner's captured programs by key, in one graph pool, and the
+    state they carry from call to call: the counterpart of the
+    reference's jitted functions (``jax.jit``; with ``donate_argnums``
+    where a state is carried).
+
+    :meth:`run` calls ``fn(**inputs)``, with ``state=`` :attr:`state`
+    first when the owner carries one, as the program of ``key``: on a
+    CUDA device captured on the key's first call (the capture's eager
+    warm-up is that call, and its result the call's) and replayed after;
+    on the CPU ``fn`` runs eagerly. A body that carries the state ends by
+    copying its new state into the tensors of the ``state`` it was given
+    (:func:`copy_into`). Those tensors are donated to every program, so
+    all of the owner's programs read and write the same buffers: give a
+    state that nothing else writes (a clone of a tree the caller keeps).
+    A replay's outputs are its program's static outputs, overwritten by
+    its next replay: read or clone them before that. A capture that fails
+    raises; nothing falls back to eager on the card.
+    """
+
+    def __init__(self, *, device: torch.device, name: str, state=None):
+        self.device = torch.device(device)
+        self.name = name
+        self.state = state
+        self.programs: Dict[Hashable, CapturedProgram] = {}
+        self.pool = None
+
+    def run(self, key: Hashable, fn: Callable[..., Any], **inputs):
+        """``fn``'s outputs for ``inputs`` through the program of ``key``
+        (eagerly on the CPU)."""
+        if self.state is not None:
+            inputs = dict(state=self.state, **inputs)
+        if self.device.type != "cuda":
+            return fn(**inputs)
+        prog = self.programs.get(key)
+        if prog is not None:
+            return prog.replay(**inputs)
+        if self.pool is None:
+            self.pool = new_pool()
+        prog = CapturedProgram(fn, inputs, device=self.device, pool=self.pool,
+                               name=f"{self.name} [{key}]",
+                               donate=() if self.state is None
+                               else ("state",))
+        self.programs[key] = prog
+        return prog.first_result

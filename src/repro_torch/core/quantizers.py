@@ -15,8 +15,10 @@ the reference's gradient.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.ste import round_ste
@@ -140,10 +142,12 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
         .to(torch.int8)
 
 
+@functools.lru_cache(maxsize=None)
 def log_magnitude_bounds(m_min: float, m_max: float):
     """``(log m_min, log m_max)`` as float32 values, the constants both the
     codec below and the MDDQ encode kernel use (float32 ``log`` taken on
-    the CPU, so every device sees the same two numbers)."""
+    the CPU, so every device sees the same two numbers; once per pair, so
+    a captured or traced step reads no tensor for them)."""
     lo = torch.log(torch.tensor(m_min, dtype=torch.float32))
     hi = torch.log(torch.tensor(m_max, dtype=torch.float32))
     return float(lo), float(hi)
@@ -171,5 +175,6 @@ def dequantize_log_magnitude(code: torch.Tensor, bits: int = 8,
 
 def f32(x: float) -> float:
     """Round a Python float to the nearest float32, as JAX's weak-typed
-    scalars do inside float32 expressions."""
-    return float(torch.tensor(x, dtype=torch.float32))
+    scalars do inside float32 expressions (numpy's conversion, the same
+    IEEE rounding as a float32 tensor's, reads no tensor)."""
+    return float(np.float32(x))

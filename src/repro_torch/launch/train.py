@@ -41,6 +41,17 @@ raises, naming the world's size. ``--device`` (the card unless given
 ``cpu``) is the port's own flag; with no card and no ``--device`` the
 launcher raises. ``main`` returns the final parameters gathered into
 plain tensors.
+
+The reference jits its step with ``donate_argnums=(0, 1, 2)``. Here the
+step is one body over the launcher's own state (:func:`make_body`):
+``make_step``'s step, its new parameters, AdamW state and error-feedback
+residual written into the buffers it read. On the card the first step is
+the warm-up run of its capture and every later step replays the graph
+(``repro_torch.captured.Programs``), the batch copied into static
+DTensors of the batch's placements; the CPU runs the body eagerly. A
+resume restores before the first step, so the graph is captured over the
+restored weights; the checkpoints and the returned parameters read the
+state's buffers.
 """
 from __future__ import annotations
 
@@ -57,6 +68,7 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import configs, tree
+from repro_torch.captured import Programs, copy_into
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.tokens import synthetic_token_batches
 from repro_torch.device import resolve_device
@@ -69,8 +81,8 @@ from repro_torch.models.lm.config import ShapeCell
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.optim.compression import ef_compress, ef_init
 
-__all__ = ["StragglerWatchdog", "make_step", "launch_mesh", "parser",
-           "main"]
+__all__ = ["StragglerWatchdog", "make_step", "make_body", "launch_mesh",
+           "parser", "main"]
 
 
 class StragglerWatchdog:
@@ -110,6 +122,19 @@ def make_step(cfg, opt: AdamW, use_ef: bool):
         params, opt_state = opt.update(grads, opt_state, params)
         return params, opt_state, ef_state, loss
     return train_step
+
+
+def make_body(cfg, opt: AdamW, use_ef: bool):
+    """The launcher's step as the body the card captures: ``body(state,
+    batch) -> loss``, ``state`` = (params, opt_state, ef_state) getting
+    :func:`make_step`'s new values in place."""
+    step = make_step(cfg, opt, use_ef)
+
+    def body(state, batch):
+        *new, loss = step(*state, batch)
+        copy_into(state, tuple(new))
+        return loss
+    return body
 
 
 def _world(dev: torch.device) -> int:
@@ -216,7 +241,10 @@ def _train(args: argparse.Namespace, dev: torch.device
         start_step = latest + 1
 
     b_sh = shd.to_shardings(shd.batch_specs(cfg, cell, mesh), mesh)
-    step_fn = make_step(cfg, opt, use_ef)
+    body = make_body(cfg, opt, use_ef)
+    program = Programs(device=dev, name="the launcher's step",
+                       state=(params, opt_state, ef_state))
+    del params, opt_state, ef_state
     log = []
     loss = None
     t_start = time.monotonic()
@@ -228,9 +256,8 @@ def _train(args: argparse.Namespace, dev: torch.device
                 b_sh.get(k, b_sh.get("tokens")).placements)
                 for k, v in next(data_iter).items()}
             with StragglerWatchdog(args.spmd_timeout):
-                params, opt_state, ef_state, loss = step_fn(
-                    params, opt_state, ef_state, batch)
-            loss = _full(loss)
+                loss = program.run("step", body, batch=batch)
+            loss = _full(loss).clone()
             if step % 10 == 0 or step == args.steps - 1:
                 loss_f = float(loss)
                 elapsed = time.monotonic() - t_start
@@ -238,8 +265,10 @@ def _train(args: argparse.Namespace, dev: torch.device
                 print(f"step {step:5d} loss {loss_f:.4f} ({elapsed:.1f}s)",
                       flush=True)
             if args.ckpt_every and step and step % args.ckpt_every == 0:
-                mgr.save(step, params, extra={"loss": float(loss)})
+                mgr.save(step, program.state[0],
+                         extra={"loss": float(loss)})
 
+    params = program.state[0]
     args._cfg, args._params, args._log = cfg, tree.tree_map(_full,
                                                            params), log
     if loss is None:

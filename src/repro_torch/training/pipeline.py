@@ -23,6 +23,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.captured import Programs
 from repro_torch.core.codebook import make_codebook
 from repro_torch.core.lee import lee, random_rotations
 from repro_torch.core.quantizers import abs_max_scale, quantize
@@ -74,14 +75,20 @@ def _codebook(cfg, dev):
 def lee_eval(cfg, params, data, n_rot: int = 8, n_cfg: int = 8,
              device: DeviceLike = None) -> float:
     """Mean LEE over the first ``n_cfg`` frames x ``n_rot`` rotations
-    (numpy seed 123)."""
+    (numpy seed 123). The force call is the reference's jitted one: on
+    the card a captured program per atom count, each result cloned
+    before the next (``lee`` calls it twice)."""
     dev = resolve_device(device)
     data = to_device(data, dev)
     codebook = _codebook(cfg, dev)
     rots = torch.from_numpy(random_rotations(123, n_rot)).to(dev)
 
+    def forces(coords):
+        return so3.forces(params, cfg, data["species"], coords, codebook)
+    progs = Programs(device=dev, name="the LEE force call")
+
     def force_fn(c):
-        return so3.forces(params, cfg, data["species"], c, codebook)
+        return progs.run(c.shape[0], forces, coords=c).clone()
     errs = [float(lee(force_fn, data["coords"][i], rots[r]))
             for i in range(n_cfg) for r in range(n_rot)]
     return float(np.mean(errs))
@@ -90,7 +97,9 @@ def lee_eval(cfg, params, data, n_rot: int = 8, n_cfg: int = 8,
 def nve_eval(cfg, params, data, n_steps: int, dt_fs: float = 0.5,
              record_every: int = 50, device: DeviceLike = None):
     """NVE run of the azobenzene equilibrium geometry at 300 K (numpy seed
-    7) with the learned force field; returns energies and drift rate."""
+    7) with the learned force field; returns energies and drift rate. The
+    reference jits the whole trajectory; here each record segment is a
+    captured program on the card (``md.nve.nve_trajectory``)."""
     dev = resolve_device(device)
     data = to_device(data, dev)
     codebook = _codebook(cfg, dev)
@@ -187,10 +196,13 @@ def _split_data(data, n_train):
 def main(fast: bool = False, device: DeviceLike = None) -> Dict[str, dict]:
     dev = resolve_device(device)
     os.makedirs(ART, exist_ok=True)
+    t_start = time.monotonic()
+    wall: Dict[str, float] = {}
     n_train, n_test = (96, 32) if fast else (384, 128)
     # rMD17 protocol: train/test frames drawn from a 300K MD trajectory
     data = sample_dataset_md(0, n_train + n_test, device=dev)
     train_data, test_data = _split_data(data, n_train)
+    wall["data"] = time.monotonic() - t_start
 
     fp32_epochs = 15 if fast else 150
     qat_epochs = 6 if fast else 40
@@ -251,6 +263,7 @@ def main(fast: bool = False, device: DeviceLike = None) -> Dict[str, dict]:
         print(f"[{name}]", metrics[name], flush=True)
 
     # ---- LEE (Table III) --------------------------------------------------
+    t0 = time.monotonic()
     for name in ["fp32", "gaq_w4a8", "naive_int8", "degree_quant"]:
         cfg = so3.So3kratesConfig(**BASE, **METHODS[name])
         metrics[name]["lee"] = lee_eval(cfg, params_of[name], test_data,
@@ -263,8 +276,10 @@ def main(fast: bool = False, device: DeviceLike = None) -> Dict[str, dict]:
         device=dev)
     print(f"[lee] gaq dir16: {metrics['gaq_w4a8']['lee_dir16']:.6f}",
           flush=True)
+    wall["lee"] = time.monotonic() - t0
 
     # ---- NVE (Fig. 3) -----------------------------------------------------
+    t0 = time.monotonic()
     for name in ["fp32", "gaq_w4a8", "naive_int8"]:
         cfg = so3.So3kratesConfig(**BASE, **METHODS[name])
         metrics[name]["nve"] = nve_eval(cfg, params_of[name], test_data,
@@ -272,10 +287,17 @@ def main(fast: bool = False, device: DeviceLike = None) -> Dict[str, dict]:
         print(f"[nve] {name}: drift="
               f"{metrics[name]['nve']['drift_ev_per_atom_ps']:.2e} "
               f"blew_up={metrics[name]['nve']['blew_up']}", flush=True)
+    wall["nve"] = time.monotonic() - t0
 
     # ---- latency / memory (Table IV) --------------------------------------
+    t0 = time.monotonic()
     metrics["latency"] = latency_eval(cfg32, params32, device=dev)
     print("[latency]", metrics["latency"], flush=True)
+    wall["latency"] = time.monotonic() - t0
+    wall["total"] = time.monotonic() - t_start
+    # each method's training and evaluation: metrics[name]["train_s"]
+    metrics["wall_s"] = wall
+    print("[wall_s]", wall, flush=True)
 
     with open(os.path.join(ART, "metrics.json"), "w") as f:
         json.dump(metrics, f, indent=2)

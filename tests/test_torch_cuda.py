@@ -21,6 +21,11 @@ tolerance). A 2-replica cluster pool on cuda:0 answers as the direct
 engine (energies equal, forces to 1e-5 of the largest |force|), each
 replica's worker on its own stream; a rolling swap under traffic drops
 nothing; an MD session's failed-over chunk re-emits every frame index.
+The training programs (a full QAT step, an NVE segment, the launcher's
+step on the (1, 1) mesh) replayed from one state against five eager runs
+of their bodies from it: bit for bit where the eager runs agree bit for
+bit, else within twice their largest gap; a full QAT step launches K4 15
+times by the capture's tally and by the profiler.
 """
 import dataclasses
 
@@ -1090,3 +1095,170 @@ def test_replay_launches_match_the_profiler(cuda):
     assert sum("kv_append_kernel" in n for n in names) == cfg.n_layers
     assert sum("decode_kernel<" in n for n in names) == cfg.n_layers
     assert decode_attention_int8kv.launches - before == cfg.n_layers
+
+
+# --- the training programs, captured (CUDA graphs) ---------------------------
+
+def _hold(replayed, eager):
+    """Each output of a replay against five eager runs of the same inputs
+    from the same state: bit for bit where the eager runs agree bit for
+    bit, else within twice their largest gap."""
+    for i, r in enumerate(replayed):
+        spread = _spread(eager, i)
+        if spread == 0:
+            assert torch.equal(r, eager[0][i]), i
+        else:
+            assert float((r - eager[0][i]).abs().max()) <= 2 * spread, i
+
+
+def _replay_against_eager(progs, key, body, state0, **inputs):
+    """The program of ``key`` replayed from ``state0`` and ``body`` run
+    eagerly five times from it, each run's outputs and new state on the
+    host."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.captured import copy_into, tree_tensors
+
+    def run(fn):
+        copy_into(progs.state, state0)
+        out = fn(**inputs)
+        return [(t.full_tensor() if isinstance(t, DTensor) else t)
+                .detach().cpu().clone()
+                for t in tree_tensors(out) + tree_tensors(progs.state)]
+    progs.run(key, body, **inputs)                       # captures
+    replayed = run(lambda **kw: progs.run(key, body, **kw))
+    eager = [run(lambda **kw: body(state=progs.state, **kw))
+             for _ in range(5)]
+    return replayed, eager
+
+
+def _profiled_band_kernels(fn):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum("band_kernel" in e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA)
+
+
+def test_replayed_so3_qat_step_matches_eager(cuda):
+    """A full QAT step (three layers, the LEE term over two rotations)
+    captured and replayed: its loss and new parameters and AdamW state
+    against five eager runs of the body from the same state; K4 launched
+    L x (1 + 2 x 2) = 15 times per step, by the capture's tally and by
+    the profiler over one replay."""
+    import functools
+    from repro_torch.captured import Programs, clone_tree
+    from repro_torch.core.lee import random_rotations
+    from repro_torch.data.synthetic_md import sample_dataset_md
+    from repro_torch.models import so3krates as so3
+    from repro_torch.training import so3_trainer as tr
+    cfg = So3kratesConfig(feat=16, vec_feat=4, n_layers=3, n_rbf=8,
+                          dir_bits=8, quant="gaq_w4a8")
+    data = sample_dataset_md(0, 8, device=cuda)
+    tcfg = tr.TrainConfig(batch_size=4, lee_weight=1.0, lee_rotations=2)
+    params = so3.init_params(cfg, 0, cuda)
+    opt = tr.make_optimizer(tcfg, 10)
+    body = functools.partial(tr.step_body, tr.make_loss_fn(
+        cfg, data["species"], make_codebook(8, device=cuda), tcfg), opt,
+        data)
+    state0 = clone_tree((params, opt.init(params)))
+    progs = Programs(device=cuda, name="a QAT step", state=clone_tree(
+        state0))
+    inputs = dict(idx=torch.tensor([5, 0, 2, 7], device=cuda),
+                  rotations=torch.as_tensor(random_rotations(1, 2),
+                                            device=cuda))
+    replayed, eager = _replay_against_eager(progs, "full", body, state0,
+                                            **inputs)
+    _hold(replayed, eager)
+    prog = progs.programs["full"]
+    assert prog.launch_counts()["mddq_encode_kernel"] == 15
+    before = mddq_encode_kernel.launches
+    assert _profiled_band_kernels(prog.replay) == 15
+    assert mddq_encode_kernel.launches - before == 15
+
+
+def test_replayed_nve_segment_matches_eager(cuda):
+    """A 5-step NVE segment of a quantized model (the pipeline's NVE
+    body) captured and replayed: the state and the energy record against
+    five eager runs from the same state; ``nve_trajectory`` on the card
+    gives finite records of its length."""
+    from repro_torch.captured import Programs, clone_tree
+    from repro_torch.data.synthetic_md import MASSES, make_ff
+    from repro_torch.md.nve import init_state, nve_segment, nve_trajectory
+    from repro_torch.models import so3krates as so3
+    cfg = So3kratesConfig(feat=16, vec_feat=4, n_layers=2, n_rbf=8,
+                          dir_bits=8, quant="gaq_w4a8")
+    params = so3.init_params(cfg, 0, cuda)
+    eq, species, _ = make_ff(cuda)
+    cb = make_codebook(8, device=cuda)
+    masses = torch.tensor(MASSES, device=cuda)
+
+    def force_fn(c):
+        return so3.forces(params, cfg, species, c, cb)
+
+    def energy_fn(c):
+        with torch.no_grad():
+            return so3.energy(params, cfg, species, c, cb)
+    state0 = init_state(7, eq, masses, force_fn, 300.0)
+
+    def body(state):
+        return nve_segment(state, masses, force_fn, energy_fn, 0.5, 5)
+    progs = Programs(device=cuda, name="an NVE segment",
+                     state=clone_tree(state0))
+    _hold(*_replay_against_eager(progs, 5, body, state0))
+    _, e = nve_trajectory(state0, masses, force_fn, energy_fn, 0.5, 12, 5)
+    assert e.shape == (3,) and bool(torch.isfinite(e).all())
+
+
+def test_replayed_launcher_step_matches_eager(cuda):
+    """The launcher's qat_w4a8 + ef8 step (float32 smoke config) on the
+    local (1, 1) mesh, DTensor state and batch, captured and replayed:
+    its loss and new state against five eager runs from the same state;
+    no kernel of the port launched."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import configs
+    from repro_torch.captured import Programs, clone_tree
+    from repro_torch.data.tokens import synthetic_token_batches
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.lm.config import ShapeCell
+    from repro_torch.models.lm.transformer import init_lm
+    from repro_torch.optim.compression import ef_init
+    from repro_torch.tools.lm_train_gap import launcher_optimizer
+    cfg = dataclasses.replace(configs.get_smoke_config("qwen2-0.5b"),
+                              quant_mode="qat_w4a8", dtype=torch.float32)
+    opt = launcher_optimizer(10)
+    mesh = make_local_mesh(cuda)
+    try:
+        params = init_lm(cfg, seed=0, device=cuda)
+        params = shd.place(params, shd.to_shardings(
+            shd.param_specs(params, cfg, mesh), mesh))
+        b_sh = shd.to_shardings(shd.batch_specs(
+            cfg, ShapeCell("custom", 32, 2, "train"), mesh), mesh)
+        it = synthetic_token_batches(cfg, 2, 32, seed=17)
+        batch = {k: distribute_tensor(torch.from_numpy(v).to(cuda), mesh,
+                                      b_sh[k].placements)
+                 for k, v in next(it).items()}
+        it.close()
+        state0 = clone_tree((params, opt.init(params), ef_init(params)))
+        progs = Programs(device=cuda, name="the launcher's step",
+                         state=clone_tree(state0))
+        before = {fn.__name__: fn.launches for fn in (
+            mddq_encode_kernel, w8a8_matmul_f32a, w4a8_matmul_f32a,
+            edge_softmax_fused, kv_append_int8, decode_attention_int8kv)}
+        with implicit_replication():
+            replayed, eager = _replay_against_eager(
+                progs, "step", train.make_body(cfg, opt, True), state0,
+                batch=batch)
+        _hold(replayed, eager)
+        assert progs.programs["step"].launch_counts() == {}
+        assert before == {fn.__name__: fn.launches for fn in (
+            mddq_encode_kernel, w8a8_matmul_f32a, w4a8_matmul_f32a,
+            edge_softmax_fused, kv_append_int8, decode_attention_int8kv)}
+    finally:
+        dist.destroy_process_group()
