@@ -166,8 +166,14 @@
    first, before any capture, the host time of one eager full QAT step
    split by ``host_split`` (Python, the autograd engine, ATen and DTensor
    dispatch, K4's wrapper and checks, the final read); then the
-   azobenzene MD set sampled on the card (96 + 32 frames, numpy seed 0),
-   fp32 15 epochs at batch 32, then gaq_w4a8 QAT (12-bit codebook) for 6
+   azobenzene MD set sampled on the card (96 + 32 frames, numpy seed 0;
+   each frame a replay of the classical-MD frame program, captured once
+   per (atom count, stride, dt), ``data.synthetic_md.FrameSampler``: that
+   program replayed from one state against five eager runs of its body
+   (``hold_step``), then SAMPLER_FRAMES-frame runs eager and replayed,
+   timed paired, each replay's e_shift, e_scale, mean kinetic temperature
+   and total-energy drift within SAMPLER_FACTOR times the SAMPLER_EAGER
+   eager runs' largest gap of their median), fp32 15 epochs at batch 32, then gaq_w4a8 QAT (12-bit codebook) for 6
    epochs, 2 of them warm-up, with the LEE term over 2 rotations; then
    ``evaluate`` and ``lee_eval`` (4 x 4) of both, ``nve_eval`` (400
    steps) of gaq_w4a8, and the trained weights served through
@@ -311,11 +317,11 @@
    whole learning rate; unpinned, a miss must come with moved A8 codes or
    gates, which are printed with the other sites'), and ``ef_compress``
    on the CPU's gradients bit for bit, card against CPU. (c) ``python -m repro_torch.launch.train --arch
-   qwen2-0.5b --smoke --steps 40 --batch 4 --seq 64 --quant qat_w4a8
+   qwen2-0.5b --smoke --steps 200 --batch 4 --seq 64 --quant qat_w4a8
    --grad-compression ef8 --ckpt-every 10 --spmd-timeout 60`` as a
    subprocess, killed with SIGKILL once step 20 is checkpointed; the same
    command then prints ``[resume] restoring step N`` (N the newest valid
-   step), finishes, and leaves step 39 valid with every digest verified
+   step), finishes, and leaves step 199 valid with every digest verified
    and no ``step_*.tmp.*`` orphan. The phase runs with glibc's malloc
    told to serve every allocation from its heap and keep what is freed
    (``kept_heap``): (b)'s CPU steps at the full vocabulary and (a)'s
@@ -404,6 +410,17 @@
    B d); prints each pass's steady step k, S and the steps charged. The
    phase within 150 s; every number beside the card's name and power
    limit.
+14. Runs the five examples' twins (``examples/*_torch.py``) on the card
+   at reduced sizes (EXAMPLE_ARGS), each in a process of its own, all
+   started together, each process counting the port's kernel launches
+   (``kernel_counters``) around the twin's ``main``. Each must exit 0
+   and print its key lines (EXAMPLE_LINES). The two twins that run a
+   launcher in a child process (the serve CLI, the LM trainer) launch
+   nothing in their own process, so the serve CLI's ``main`` also runs
+   here, counted, with the twin's argument lists. Over the phase the
+   f32-A W8A8 and W4A8 matmuls, the edge softmax, the KV write and the
+   int8-KV decode attention must each have launched. The phase within
+   EXAMPLES_PHASE_S.
 
 Phase 2 also holds the act-quant kernel bit for bit (float32 and bf16),
 its KV entry (the decode's whole int8 KV write) byte for byte over a
@@ -496,6 +513,17 @@ TRAIN_PHASE_S = 180.0
 # the captured programs against eager: an NVE segment of NVE_HOLD_STEPS,
 # evaluate in batches of EVAL_HOLD_BATCH (a replay after the first)
 NVE_HOLD_STEPS, EVAL_HOLD_BATCH = 10, 8
+# the classical-MD sampler (data.synthetic_md): its frame program (40
+# steps) replayed from one state against five eager runs; then
+# SAMPLER_FRAMES-frame runs, eager and replayed (paired: eager, replay,
+# replay, eager, then SAMPLER_EAGER - 2 more eager runs), whose
+# statistics (e_shift, e_scale, mean kinetic temperature, total-energy
+# drift) each replay holds within SAMPLER_FACTOR times the eager runs'
+# largest gap of their median: the trajectory is chaotic and the forces'
+# backward sums with atomics, so runs part after some frames. With five
+# independent eager runs a sixth run misses 4x their range about once in
+# 600 per statistic (a normal model)
+SAMPLER_FRAMES, SAMPLER_EAGER, SAMPLER_FACTOR = 32, 5, 4.0
 # a float32 gradient leaf of the card's step lies within F32_GRAD_FACTOR
 # times the CPU's float32 spread on it, or 1e-4 (gaps to the CPU's
 # float32 step over the leaf's largest |g|; the spread is the largest gap
@@ -556,6 +584,10 @@ PREFILL_PHASE_S = 150.0
 # seconds (the qat steps cut from 30 to 20 to keep the phase inside it on
 # the slower hosts of the card machines)
 LM_TRAIN_STEPS, LM_PLAIN_STEPS = 20, 10
+# (c)'s run: a replayed smoke step takes milliseconds, so the kill may land
+# a few checkpoints past step 20; the resumed run must still log two
+# losses or more for the launcher's own check that its loss fell
+LM_RESUME_STEPS = 200
 LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 256
 LM_TRAIN_PHASE_S = 180.0
 # phase 12: the MoE, Mamba2-hybrid and xLSTM families at their published
@@ -618,6 +650,38 @@ DRYRUN_TAG, DRYRUN_TIMEOUT_S = "chip_smoke", 120.0
 SCAN_CELLS = (("prefill_32k", "tp"), ("train_4k", "tp"))
 SCAN_SEQ, SCAN_MESH = 32, (2, 2)
 DIST_PHASE_S = 150.0
+# phase 14: the examples' twins, their size flags on the card, the lines
+# each must print (regular expressions, each at least the given times),
+# the kernels the phase must launch, and the phase's limit in seconds
+EXAMPLE_ARGS = {
+    "quickstart": [],
+    "train_so3krates_qat": ["--epochs", "15", "--qat-epochs", "4"],
+    "md_stability": ["--steps", "1000", "--epochs", "15"],
+    "serve_quantized_lm": [],
+    "train_lm_distributed": ["--steps", "40"],
+}
+EXAMPLE_LINES = {
+    "quickstart": [(r"\(100% within\)", 1), (r"^quickstart OK$", 1)],
+    "train_so3krates_qat": [
+        (r"^fp32: E-MAE [\d.]+ meV, F-MAE [\d.]+ meV/A$", 1),
+        (r"^GAQ W4A8: E-MAE [\d.]+ meV, F-MAE [\d.]+ meV/A, LEE [\d.]+ "
+         r"meV/A$", 1),
+        (r"^naive INT8: E-MAE [\d.]+ meV, F-MAE [\d.]+ meV/A, LEE [\d.]+ "
+         r"meV/A$", 1)],
+    "md_stability": [(r"device=cuda:0", 1), (r"blew_up=False", 1),
+                     (r"^served vs fp32 forces on 8 test frames: MAE ", 1),
+                     (r"^served-model LEE: mean ", 1)],
+    "serve_quantized_lm": [(r"device=cuda:0$", 4),
+                           (r"^decode: [\d.]+ tok/s", 3),
+                           (r"^served-model LEE: mean ", 1)],
+    "train_lm_distributed": [(r"^step +\d+ loss [\d.]+", 5),
+                             (r"^done: first loss [\d.]+ -> last [\d.]+$",
+                              1)],
+}
+EXAMPLE_KERNELS = ("w8a8_matmul_f32a", "w4a8_matmul_f32a",
+                   "edge_softmax_fused", "kv_append_int8",
+                   "decode_attention_int8kv")
+EXAMPLES_PHASE_S = 150.0
 TRUNK_W8 = (64, 192)         # wq | wk | wm
 TRUNK_W4 = (64, 32)          # wa | wb
 OTHER_W8 = {"w_upd": (64, 64), "w_vnorm": (16, 64), "ro_w1": (80, 64),
@@ -3592,13 +3656,17 @@ def _plain(torch, t):
 
 
 def hold_step(torch, progs, key, body, state0, inputs, what,
-              kept=lambda state: state):
+              kept=lambda state: state, joint=False):
     """A program of ``progs`` replayed from ``state0`` against five eager
     runs of ``body`` from it (the state reset before each): every output
     and every leaf of ``kept(new state)``, bit for bit where the eager
     runs agree bit for bit, else within twice their largest gap (the
-    backward's scatters and index-adds sum with atomics). Prints the
-    worst leaf; returns (worst gap, its eager spread)."""
+    backward's scatters and index-adds sum with atomics). ``joint``: the
+    leaves are one trajectory's state, so each gap and spread is taken
+    over the leaf's largest |value| and every leaf is held within twice
+    the largest spread of any leaf (a position can round alike in five
+    eager runs whose forces differ). Prints the worst leaf; returns
+    (worst gap, its eager spread)."""
     from repro_torch.captured import copy_into, tree_tensors
 
     def run(fn):
@@ -3609,24 +3677,32 @@ def hold_step(torch, progs, key, body, state0, inputs, what,
     replayed = run(lambda **kw: progs.run(key, body, **kw))
     eager = [run(lambda **kw: body(state=progs.state, **kw))
              for _ in range(5)]
+
+    def diff(a, b, i):
+        d = float((a.double() - b.double()).abs().max())
+        return d / max(float(eager[0][i].abs().max()), 1e-30) if joint \
+            else d
+    spreads = [max(diff(a[i], b[i], i) for a in eager for b in eager)
+               for i in range(len(replayed))]
     worst, n_spread = (0.0, 0.0, -1), 0
     for i, r in enumerate(replayed):
-        spread = max(float((a[i].double() - b[i].double()).abs().max())
-                     for a in eager for b in eager)
-        gap = float((r.double() - eager[0][i].double()).abs().max())
-        n_spread += spread > 0
+        spread = max(spreads) if joint else spreads[i]
+        n_spread += spreads[i] > 0
+        gap = diff(r, eager[0][i], i)
         ok = torch.equal(r, eager[0][i]) if spread == 0 \
             else gap <= 2 * spread
         require(ok, f"{what}: output {i} of the replay differs from eager "
                     f"by {gap} (five eager runs' largest gap {spread})")
         if gap > worst[0]:
             worst = (gap, spread, i)
+    scale = (", both over the leaf's largest |value|, the spread the "
+             "largest of any leaf" if joint else "")
     print(f"  {what}: a replay against five eager runs from the same state,"
           f" {len(replayed)} outputs and leaves: "
-          f"{len(replayed) - n_spread} bit for bit in every eager run and "
-          f"so in the replay; the "
+          f"{len(replayed) - n_spread} bit for bit in every eager run"
+          f"{'' if joint else ' and so in the replay'}; the "
           f"largest gap {worst[0]:.3g} (output {worst[2]}, eager spread "
-          f"{worst[1]:.3g}, twice that allowed)")
+          f"{worst[1]:.3g}{scale}, twice that allowed)")
     copy_into(progs.state, state0)
     return worst[:2]
 
@@ -3870,6 +3946,96 @@ def eval_replays(torch, dev, cfg, params, test_data):
                 f"spread {spread})")
 
 
+def sampler_statistics(torch, sampler, coords, veloc, dt_fs, stride):
+    """A classical-MD run's statistics: the dataset's e_shift and e_scale
+    (eV, as ``_labelled`` takes them), the mean kinetic temperature (K,
+    3N degrees of freedom) and the total energy's drift (eV/atom/ps)."""
+    from repro_torch.md.nve import _KB, energy_drift_rate
+    n = coords.shape[1]
+    with torch.no_grad():
+        e_pot = sampler.ff.energy(coords).double()
+        ke = 0.5 * (sampler.masses[:, None] * veloc ** 2).sum((-1, -2))
+    t_kin = (2 * ke.double() / (3 * n * _KB)).mean()
+    e_tot = (e_pot + ke.double()).cpu().numpy()
+    return {"e_shift": float(e_pot.mean()),
+            "e_scale": float(e_pot.std(correction=0)),
+            "mean_T": float(t_kin),
+            "drift": energy_drift_rate(e_tot, dt_fs, stride, n)}
+
+
+def md_sampler_replays(torch, dev, ident):
+    """Phase 8's classical-MD sampler (``data.synthetic_md``): the frame
+    program, captured by the phase's first sample, replayed from one
+    state against five eager runs of its body (``hold_step``); then
+    SAMPLER_FRAMES-frame runs from seed 1, eager and replayed, timed
+    paired, each replay's statistics within SAMPLER_FACTOR times the
+    eager runs' largest gap of their median (bit for bit where the eager
+    runs agree). Returns {"eager_s": [...], "replay_s": [...],
+    "capture": (warm-up s, capture s)}."""
+    from repro_torch.data.synthetic_md import frame_sampler, sample_frames_md
+    from repro_torch.md.nve import init_state
+    stride, dt_fs = 40, 0.5
+    sampler = frame_sampler(dev)
+    key = (sampler.eq.shape[0], stride, dt_fs)
+    prog = sampler.programs.programs.get(key)
+    require(prog is not None, f"the sampler captured no frame program "
+                              f"{key}: {list(sampler.programs.programs)}")
+    state0 = tuple(init_state(0, sampler.eq, sampler.masses,
+                              sampler.ff.forces, 300.0))
+    with sampler.lock:
+        hold_step(torch, sampler.programs, key, sampler.body(stride, dt_fs),
+                  state0, {}, f"the classical-MD frame ({stride} steps)",
+                  joint=True)
+
+    def run(eager):
+        ctx = eager_training_programs() if eager else contextlib.nullcontext()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with ctx:
+            coords, veloc = sample_frames_md(1, SAMPLER_FRAMES, dt_fs=dt_fs,
+                                             stride=stride, device=dev)
+        torch.cuda.synchronize(dev)
+        took = time.perf_counter() - t0
+        require(bool(torch.isfinite(coords).all()),
+                "the sampler: non-finite coordinates")
+        return took, sampler_statistics(torch, sampler, coords, veloc,
+                                        dt_fs, stride)
+    order = ["eager", "replay", "replay", "eager"] \
+        + ["eager"] * (SAMPLER_EAGER - 2)
+    runs = [(how, *run(how == "eager")) for how in order]
+    require(len(sampler.programs.programs) == 1
+            and sampler.programs.programs[key] is prog,
+            f"the sampler captured again: {list(sampler.programs.programs)}")
+    eager = [st for how, _, st in runs if how == "eager"]
+    for name in eager[0]:
+        vals = [st[name] for st in eager]
+        spread = max(vals) - min(vals)
+        mid = statistics.median(vals)
+        for how, _, st in runs:
+            if how != "replay":
+                continue
+            gap = abs(st[name] - mid)
+            ok = gap == 0 if spread == 0 else gap <= SAMPLER_FACTOR * spread
+            require(ok, f"the sampler's replayed {name} {st[name]!r} is "
+                        f"{gap:.3g} from the eager median {mid!r} "
+                        f"({SAMPLER_EAGER} eager runs' largest gap "
+                        f"{spread:.3g})")
+        print(f"  sampler {name}: eager {vals}, replayed "
+              f"{[st[name] for how, _, st in runs if how == 'replay']} "
+              f"(each replay within {SAMPLER_FACTOR:g}x the eager runs' "
+              f"largest gap {spread:.6g} of their median)")
+    secs = {how: [t for h, t, _ in runs if h == how][:2]
+            for how in ("eager", "replay")}
+    print(f"  the sampler, {SAMPLER_FRAMES} frames x {stride} steps: eager "
+          f"{secs['eager']} s against replayed {secs['replay']} s (paired: "
+          f"eager, replay, replay, eager); its frame program's warm-up "
+          f"{prog.warmup_seconds:.3f} s and capture "
+          f"{prog.capture_seconds:.3f} s (instantiation "
+          f"{prog.instantiate_seconds:.3f}) [{ident}]")
+    return {"eager_s": secs["eager"], "replay_s": secs["replay"],
+            "capture": (prog.warmup_seconds, prog.capture_seconds)}
+
+
 def run_training(torch, dev):
     """Phase 8: sample the azobenzene set on the card, train fp32 at the
     paper's width, QAT-finetune gaq_w4a8 with warm-up and the LEE term,
@@ -3909,8 +4075,9 @@ def run_training(torch, dev):
     train_data, test_data = pipeline._split_data(data, TRAIN_FRAMES)
     e_mev = float(data["e_scale"]) * 1e3
     print(f"  {TRAIN_FRAMES} + {TEST_FRAMES} MD frames sampled on the card "
-          f"in {time.perf_counter() - t0:.1f} s, e_scale "
-          f"{float(data['e_scale']):.4f} eV")
+          f"in {time.perf_counter() - t0:.1f} s (the frame program's "
+          f"capture included), e_scale {float(data['e_scale']):.4f} eV")
+    md_sampler_replays(torch, dev, ident)
     cfg32 = so3.So3kratesConfig(**pipeline.BASE, **pipeline.METHODS["fp32"])
     cfgq = so3.So3kratesConfig(**pipeline.BASE,
                                **pipeline.METHODS["gaq_w4a8"])
@@ -5572,7 +5739,8 @@ def run_lm_train_resume(torch, dev, ident):
     env = dict(os.environ, PYTHONPATH=str(src))
     with tempfile.TemporaryDirectory(prefix="lm_resume_") as ck:
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-               "qwen2-0.5b", "--smoke", "--steps", "40", "--batch", "4",
+               "qwen2-0.5b", "--smoke", "--steps", str(LM_RESUME_STEPS),
+               "--batch", "4",
                "--seq", "64", "--quant", "qat_w4a8", "--grad-compression",
                "ef8", "--ckpt-every", "10", "--spmd-timeout", "60",
                "--ckpt-dir", ck]
@@ -5599,18 +5767,20 @@ def run_lm_train_resume(torch, dev, ident):
         out = subprocess.run(cmd, env=env, capture_output=True, text=True,
                              timeout=120)
         lines = ["  " + line for line in out.stdout.strip().splitlines()]
-        require(out.returncode == 0, f"the resumed run failed: "
-                                     f"{out.stderr[-2000:]}")
+        require(out.returncode == 0, f"the run resumed from step {newest} "
+                                     f"failed: {out.stderr[-2000:]}")
         require(f"[resume] restoring step {newest} from" in out.stdout,
                 f"the resumed run did not restore step {newest}")
-        require(mgr.latest_step() == 39, f"newest step {mgr.latest_step()}")
-        arrays = mgr.restore_arrays(39)          # every digest verified
+        last = LM_RESUME_STEPS - 1
+        require(mgr.latest_step() == last,
+                f"newest step {mgr.latest_step()}")
+        arrays = mgr.restore_arrays(last)        # every digest verified
         orphans = [p for p in os.listdir(ck) if ".tmp." in p]
         require(not orphans, f"orphaned saves {orphans}")
         lines.append(
             f"  kill and resume: killed after {killed:.1f} s with "
             f"{leftover} on disk, newest valid step {newest}; the same "
-            f"command resumed from it and finished: step 39 valid "
+            f"command resumed from it and finished: step {last} valid "
             f"({len(arrays)} arrays, every digest verified), no orphan, "
             f"{time.perf_counter() - t0:.1f} s in all [{ident}]")
     return lines
@@ -6253,6 +6423,128 @@ def run_distribution(torch, dev, bounds):
     return {"launches": counts}
 
 
+# --- phase 14: the examples' twins -------------------------------------------
+
+# run in each twin's process: the twin's main, then its process's launch
+# counts as the last line
+EXAMPLE_RUNNER = """
+import importlib.util, json, sys
+root, name, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+sys.path[:0] = [root + "/src", root]
+import chip_smoke
+counters = chip_smoke.kernel_counters()
+spec = importlib.util.spec_from_file_location(
+    name, f"{root}/examples/{name}_torch.py")
+twin = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(twin)
+twin.main(argv)
+print(json.dumps({"launches": {c.__name__: c.launches for c in counters}}))
+"""
+
+
+def example_twin(name):
+    """The twin of ``examples/<name>.py``, imported from its file."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def key_lines(name, out):
+    """The lines of EXAMPLE_LINES[name] that ``out`` holds, each pattern
+    at least its count of times."""
+    lines = out.splitlines()
+    found = []
+    for pattern, times in EXAMPLE_LINES[name]:
+        hits = [ln for ln in lines if re.search(pattern, ln)]
+        require(len(hits) >= times,
+                f"{name}: {len(hits)} lines match {pattern!r}, expected "
+                f"{times}; its output ends {out[-2000:]!r}")
+        found += hits[:times]
+    return found
+
+
+def run_examples(torch, dev):
+    """Phase 14: the five twins on the card, in processes of their own
+    started together (each counting its kernel launches around the twin's
+    main); meanwhile the serve CLI's main here, counted, with the serve
+    twin's argument lists. Returns {"launches": {kernel: n}}."""
+    import io
+    import os
+    import tempfile
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    ident = gpu_identity()
+    root = Path(__file__).resolve().parent
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_"))
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="2")
+    procs = {}
+    try:
+        for name, argv in EXAMPLE_ARGS.items():
+            if name == "train_lm_distributed":
+                argv = argv + ["--ckpt-dir", str(tmp / "ckpt")]
+            log = open(tmp / f"{name}.log", "w")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-c", EXAMPLE_RUNNER, str(root), name]
+                + argv, stdout=log, stderr=subprocess.STDOUT, env=env,
+                cwd=root), log, time.perf_counter())
+        # the serve twin's launchers, here and counted
+        twin = example_twin("serve_quantized_lm")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, here = counted_run(lambda: [
+                serve.main(args + ["--device", str(dev)])
+                for _, args in twin.runs()])
+        key_lines("serve_quantized_lm", buf.getvalue())
+        print(f"  the serve twin's launchers in this process, counted: "
+              f"{nonzero(here)}")
+        total = {c.__name__: here.get(c.__name__, 0)
+                 for c in kernel_counters()}
+        ends = {}
+        while (len(ends) < len(procs)
+               and time.perf_counter() - t_phase < EXAMPLES_PHASE_S):
+            for name, (proc, _, _) in procs.items():
+                if name not in ends and proc.poll() is not None:
+                    ends[name] = time.perf_counter()
+            time.sleep(0.1)
+        for name, (proc, log, t0) in procs.items():
+            rc = proc.poll()
+            took = ends.get(name, time.perf_counter()) - t0
+            log.close()
+            out = (tmp / f"{name}.log").read_text()
+            require(rc == 0, f"the {name} twin "
+                             + ("ran past the phase's limit" if rc is None
+                                else f"exited {rc}")
+                             + f"; its output ends {out[-3000:]!r}")
+            lines = key_lines(name, out)
+            counts = json.loads(out.strip().splitlines()[-1])["launches"]
+            for k in total:
+                total[k] += counts.get(k, 0)
+            print(f"  {name}_torch.py "
+                  f"{' '.join(EXAMPLE_ARGS[name]) or '(its defaults)'}: "
+                  f"exit 0 in {took:.1f} s (five twins at once on one card), "
+                  f"launches in its process {nonzero(counts)}; "
+                  + " | ".join(ln.strip() for ln in lines))
+    finally:
+        for proc, log, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    missing = [k for k in EXAMPLE_KERNELS if not total[k]]
+    require(not missing, f"the examples launched none of {missing}: {total}")
+    took = time.perf_counter() - t_phase
+    print(f"  launches over the phase: {nonzero(total)}; phase 14 took "
+          f"{took:.1f} s [{ident}]")
+    require(took <= EXAMPLES_PHASE_S, f"phase 14 took {took:.1f} s, over "
+                                      f"{EXAMPLES_PHASE_S:.0f}")
+    return {"launches": total}
+
+
 def main() -> int:
     src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch").is_dir():
@@ -6368,6 +6660,9 @@ def main() -> int:
           "onto the mesh, the dry run at full width "
           f"({', '.join(' x '.join(c) for c in DRYRUN_ALL)})")
     distribution = run_distribution(torch, dev, lm_train["bounds"])
+    print("phase 14: the five examples' twins (examples/*_torch.py) at "
+          "reduced sizes, in processes of their own, started together")
+    examples = run_examples(torch, dev)
     for row in rows:
         if row["name"] == "mddq_encode_kernel":
             row["training_shape"] = training["k4_training"]
@@ -6394,7 +6689,8 @@ def main() -> int:
                    "lm_train": lm_train["launches"].get(row["name"], 0),
                    "lm_families": families["launches"].get(row["name"], 0),
                    "distribution": distribution["launches"].get(
-                       row["name"], 0)}
+                       row["name"], 0),
+                   "examples": examples["launches"].get(row["name"], 0)}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     require("jax" not in sys.modules and "repro" not in sys.modules,

@@ -106,6 +106,12 @@ def _capture_stream(dev: torch.device) -> "torch.cuda.Stream":
 
 _GC_LOCK = threading.Lock()
 _GC_HOLDS = [0, True]        # open captures, the collector's state before
+# A graph's capture_begin adds it to the CUDA generator's set of graphs and
+# its destructor takes it out; on the card's torch (2.11) neither holds a
+# lock, so threads that capture while others drop programs (a cluster's
+# replicas) could corrupt the set and abort the process in a destructor.
+# Both run under this lock.
+_GRAPHS_LOCK = threading.RLock()
 
 
 @contextlib.contextmanager
@@ -263,8 +269,9 @@ class CapturedProgram:
                 owning_buffers(side.cuda_stream, self.buffers), \
                 _collector_off():
             with torch.cuda.stream(side):
-                self.graph.capture_begin(pool=pool,
-                                         capture_error_mode="thread_local")
+                with _GRAPHS_LOCK:
+                    self.graph.capture_begin(
+                        pool=pool, capture_error_mode="thread_local")
                 try:
                     self.outputs = fn(**self.static)
                 except BaseException as exc:
@@ -282,6 +289,12 @@ class CapturedProgram:
                         f"capture of {name} failed: {exc}") from exc
                 self.instantiate_seconds = time.perf_counter() - t
         self.launches = dict(tally)
+
+    def __del__(self):
+        graph = self.__dict__.pop("graph", None)
+        if graph is not None:
+            with _GRAPHS_LOCK:          # its destructor, if this is the last
+                del graph               # reference (see _GRAPHS_LOCK)
 
     def launch_counts(self) -> Dict[str, int]:
         """:attr:`launches` by counter name (``fn.__name__``, or

@@ -9,22 +9,31 @@ The topology is numpy (the JAX package's construction, copied); the
 force field runs on any device, its forces by autograd. Random draws
 come from numpy generators.
 
+The NVE sampler is the reference's two nested ``lax.scan``s: one frame
+is ``stride`` velocity-Verlet steps over the carried (r, v, f)
+(:meth:`FrameSampler.body`). On the card that body is captured once per
+(atom count, stride, dt) and replayed once per frame
+(``repro_torch.captured.Programs``); the CPU calls it eagerly.
+
 Units: eV, Angstrom (so "meV" numbers are 1e-3 of these energies).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple, Union
+import threading
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.captured import Programs, copy_into
 from repro_torch.core.quantizers import clip
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.md.nve import _FS, init_state
 
 __all__ = ["C", "N", "H", "SPECIES_MAP", "MASSES", "azobenzene_topology",
-           "ClassicalFF", "make_ff", "sample_dataset", "sample_dataset_md"]
+           "ClassicalFF", "make_ff", "sample_dataset", "FrameSampler",
+           "frame_sampler", "sample_frames_md", "sample_dataset_md"]
 
 # species codes
 C, N, H = 6, 7, 1
@@ -206,6 +215,84 @@ def sample_dataset(seed: Seed, n_samples: int, sigma: float = 0.04,
     return _labelled(coords, species, ff, standardize)
 
 
+class FrameSampler:
+    """The classical-MD frames of one device: the force field, made once
+    so that its tensors outlive the graphs that read them, and one
+    :class:`~repro_torch.captured.Programs` that carries the state
+    (r, v, f) and holds a frame program per (atom count, stride, dt).
+    Use :func:`frame_sampler`; one run at a time (``lock``)."""
+
+    def __init__(self, device: torch.device):
+        self.eq, self.species, self.ff = make_ff(device)
+        self.masses = torch.tensor(MASSES, dtype=torch.float32,
+                                   device=self.eq.device)
+        self.inv_m = (1.0 / self.masses)[:, None]
+        self.programs = Programs(
+            device=self.eq.device, name="the classical-MD frame",
+            state=tuple(torch.zeros_like(self.eq) for _ in range(3)))
+        self.lock = threading.Lock()
+
+    def body(self, stride: int, dt_fs: float):
+        """One frame: ``stride`` velocity-Verlet steps from the carried
+        (r, v, f), written back into it (what a captured frame replays)."""
+        dt = dt_fs * _FS
+        inv_m, forces = self.inv_m, self.ff.forces
+
+        def frame(state):
+            r, v, f = state
+            for _ in range(stride):
+                v_half = v + 0.5 * dt * f * inv_m
+                r = r + dt * v_half
+                f = forces(r)
+                v = v_half + 0.5 * dt * f * inv_m
+            copy_into(state, (r, v, f))
+        return frame
+
+    def frames(self, state, n_samples: int, stride: int, dt_fs: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(coords, veloc), each (n_samples, n, 3): the state after each of
+        ``n_samples`` frames from ``state`` (r, v, f), cloned out before
+        the next frame runs."""
+        progs, key = self.programs, (self.eq.shape[0], stride, dt_fs)
+        body = self.body(stride, dt_fs)
+        with self.lock:
+            copy_into(progs.state, state)
+            coords, veloc = (self.eq.new_empty((n_samples,) + self.eq.shape)
+                             for _ in range(2))
+            for i in range(n_samples):
+                progs.run(key, body)
+                coords[i].copy_(progs.state[0])
+                veloc[i].copy_(progs.state[1])
+        return coords, veloc
+
+
+_SAMPLERS: Dict[torch.device, FrameSampler] = {}
+_SAMPLERS_LOCK = threading.Lock()
+
+
+def frame_sampler(device: DeviceLike = None) -> FrameSampler:
+    """The device's :class:`FrameSampler`, made on first use and kept, so
+    that its captured frames serve every later call."""
+    dev = resolve_device(device)
+    with _SAMPLERS_LOCK:
+        if dev not in _SAMPLERS:
+            _SAMPLERS[dev] = FrameSampler(dev)
+        return _SAMPLERS[dev]
+
+
+def sample_frames_md(seed: Seed, n_samples: int,
+                     temperature_K: float = 300.0, dt_fs: float = 0.5,
+                     stride: int = 40, device: DeviceLike = None,
+                     veloc: Optional[np.ndarray] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The frames of :func:`sample_dataset_md` unlabelled: (coords,
+    veloc), each (n_samples, 24, 3)."""
+    sampler = frame_sampler(device)
+    state = init_state(seed, sampler.eq, sampler.masses, sampler.ff.forces,
+                       temperature_K, veloc=veloc)
+    return sampler.frames(state, n_samples, stride, dt_fs)
+
+
 def sample_dataset_md(seed: Seed, n_samples: int,
                       temperature_K: float = 300.0, dt_fs: float = 0.5,
                       stride: int = 40, standardize: bool = True,
@@ -214,19 +301,9 @@ def sample_dataset_md(seed: Seed, n_samples: int,
     """Frames of a classical-FF NVE trajectory at the given temperature,
     one every ``stride`` steps (the rMD17 protocol). Initial velocities
     are Maxwell-Boltzmann from numpy ``seed`` (``md.nve.init_state``), or
-    ``veloc`` as given (e.g. the JAX package's state)."""
-    eq, species, ff = make_ff(device)
-    masses = torch.tensor(MASSES, dtype=torch.float32, device=eq.device)
-    r, v, f = init_state(seed, eq, masses, ff.forces, temperature_K,
-                         veloc=veloc)
-    dt = dt_fs * _FS
-    inv_m = (1.0 / masses)[:, None]
-    frames = []
-    for _ in range(n_samples):
-        for _ in range(stride):
-            v_half = v + 0.5 * dt * f * inv_m
-            r = r + dt * v_half
-            f = ff.forces(r)
-            v = v_half + 0.5 * dt * f * inv_m
-        frames.append(r)
-    return _labelled(torch.stack(frames), species, ff, standardize)
+    ``veloc`` as given (e.g. the JAX package's state). On the card each
+    frame replays the frame program (:class:`FrameSampler`)."""
+    sampler = frame_sampler(device)
+    coords, _ = sample_frames_md(seed, n_samples, temperature_K, dt_fs,
+                                 stride, sampler.eq.device, veloc)
+    return _labelled(coords, sampler.species, sampler.ff, standardize)

@@ -27,6 +27,7 @@ tests run the code the card captures:
 """
 import contextlib
 import dataclasses
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -306,6 +307,31 @@ def test_programs_carry_their_state_on_the_cpu():
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         captured.CapturedProgram(body, {"state": progs.state, "by": 1.0},
                                  device="cpu", name="a counter")
+
+
+def test_a_programs_graph_is_released_under_the_graphs_lock():
+    """A captured program's graph is destroyed holding ``_GRAPHS_LOCK``,
+    which a capture on another thread takes to register its graph: the
+    CUDA generator's set of graphs is not thread-safe on the card's
+    torch."""
+    held = []
+
+    def probe():
+        got = captured._GRAPHS_LOCK.acquire(blocking=False)
+        if got:
+            captured._GRAPHS_LOCK.release()
+        held.append(not got)
+
+    class Graph:
+        def __del__(self):
+            t = threading.Thread(target=probe)
+            t.start()
+            t.join(10)
+
+    prog = object.__new__(captured.CapturedProgram)
+    prog.graph = Graph()
+    del prog
+    assert held == [True]
 
 
 def test_clone_tree_and_copy_into_on_dtensors():

@@ -22,10 +22,11 @@ engine (energies equal, forces to 1e-5 of the largest |force|), each
 replica's worker on its own stream; a rolling swap under traffic drops
 nothing; an MD session's failed-over chunk re-emits every frame index.
 The training programs (a full QAT step, an NVE segment, the launcher's
-step on the (1, 1) mesh) replayed from one state against five eager runs
-of their bodies from it: bit for bit where the eager runs agree bit for
-bit, else within twice their largest gap; a full QAT step launches K4 15
-times by the capture's tally and by the profiler.
+step on the (1, 1) mesh, the training set's classical-MD frame)
+replayed from one state against five eager runs of their bodies from
+it: bit for bit where the eager runs agree bit for bit, else within
+twice their largest gap; a full QAT step launches K4 15 times by the
+capture's tally and by the profiler.
 """
 import dataclasses
 
@@ -1262,3 +1263,55 @@ def test_replayed_launcher_step_matches_eager(cuda):
             edge_softmax_fused, kv_append_int8, decode_attention_int8kv)}
     finally:
         dist.destroy_process_group()
+
+
+def test_replayed_md_frame_matches_eager(cuda):
+    """The training set's classical-MD frame (40 velocity-Verlet steps of
+    the classical force field, its forces by autograd) captured and
+    replayed: the state (r, v, f) after it against five eager runs of the
+    body from the same state. The three leaves are one trajectory's
+    state, so each leaf's gap over its largest |value| is held within
+    twice the largest such spread of the eager runs over the three (bit
+    for bit if no eager leaf differs): a position can round alike in five
+    eager runs whose forces, summed with atomics, differ."""
+    from repro_torch.data.synthetic_md import frame_sampler
+    from repro_torch.md.nve import init_state
+    s = frame_sampler(cuda)
+    state0 = tuple(init_state(0, s.eq, s.masses, s.ff.forces, 300.0))
+    with s.lock:
+        replayed, eager = _replay_against_eager(
+            s.programs, (24, 40, 0.5), s.body(40, 0.5), state0)
+
+    def rel(a, i):
+        return float((a - eager[0][i]).abs().max()
+                     / eager[0][i].abs().max())
+    spread = max(_spread(eager, i) / float(eager[0][i].abs().max())
+                 for i in range(3))
+    for i, r in enumerate(replayed):
+        if spread == 0:
+            assert torch.equal(r, eager[0][i]), i
+        else:
+            assert rel(r, i) <= 2 * spread, (i, rel(r, i), spread)
+
+
+def test_md_frames_capture_once_per_atom_count_and_stride(cuda):
+    """``sample_dataset_md`` on the card captures one frame program per
+    (atom count, stride, dt), kept across calls and seeds; what it
+    returns is finite and carries no autograd graph, though it is called
+    under ``enable_grad``."""
+    from repro_torch.data.synthetic_md import frame_sampler, sample_dataset_md
+    s = frame_sampler(cuda)
+    with torch.enable_grad():
+        a = sample_dataset_md(0, 3, stride=4, device=cuda)
+    prog = s.programs.programs[(24, 4, 0.5)]
+    b = sample_dataset_md(1, 5, stride=4, device=cuda)
+    c = sample_dataset_md(0, 2, stride=3, device=cuda)
+    assert s.programs.programs[(24, 4, 0.5)] is prog
+    assert {(24, 3, 0.5), (24, 4, 0.5)} <= set(s.programs.programs)
+    for d, n in ((a, 3), (b, 5), (c, 2)):
+        assert d["coords"].shape == (n, 24, 3)
+        for k in ("coords", "energy", "forces"):
+            assert bool(torch.isfinite(d[k]).all()), k
+            assert not d[k].requires_grad and d[k].grad_fn is None
+    for t in s.programs.state:
+        assert not t.requires_grad and t.grad_fn is None

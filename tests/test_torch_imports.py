@@ -10,6 +10,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from test_torch_examples import twin
+
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 
@@ -86,9 +88,17 @@ def test_the_capture_module_is_imported():
     assert captured._STREAMS == {}
 
 
+TWINS = ("quickstart", "train_so3krates_qat", "md_stability",
+         "serve_quantized_lm", "train_lm_distributed")
+
+
 def test_no_source_file_imports_jax_or_repro():
+    """The port's package and the examples' twins (``examples/*_torch.py``,
+    one per reference script)."""
+    twins = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert {p.name for p in twins} == {f"{n}_torch.py" for n in TWINS}
     offenders = []
-    for path in PKG.rglob("*.py"):
+    for path in list(PKG.rglob("*.py")) + twins:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):
@@ -174,7 +184,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                   lambda: so3_trainer.evaluate(cfg, {}, {}),
                   lambda: pipeline.load_params("no_such_params.npz"),
                   lambda: pipeline.latency_eval(cfg, {}),
-                  lambda: pipeline.main(fast=True)):
+                  lambda: pipeline.main(fast=True)) + tuple(
+                      (lambda m: lambda: m.main([]))(twin(name))
+                      for name in TWINS):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
     with pytest.raises(RuntimeError):
